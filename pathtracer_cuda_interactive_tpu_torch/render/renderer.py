@@ -1,0 +1,158 @@
+"""Progressive renderer: accumulation + camera-reset controller.
+
+The port of ``pathtracer_cuda_interactive_tpu/render/renderer.py``, the
+equivalent of the reference's frame loop state machine (main.cu:272-344,
+C26/C27 in SURVEY.md): keep a running radiance sum in a device buffer, add
+``samples_per_frame`` fresh samples per step, divide by the count for
+display, and zero everything when the camera (or the spf setting) changes —
+camera compare with epsilon 1e-5 (main.cu:297-312).
+
+The one compute path is the megakernel (ops/megakernel.py): the CUDA
+kernel on a card, its plain torch version on the CPU.  Scenes above
+``MEGAKERNEL_MAX_PRIMS`` primitives need the sorted wavefront, which is not
+ported yet.  The JAX package's executable cache (utils/aotcache.py) has no
+counterpart: it worked around a TPU-backend recompile, and the kernel here
+is built once per source hash into the package's _build/ directory.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..models.device_scene import DeviceScene
+from ..models.scenepack import ScenePack, load_scene
+from ..ops.camera import Camera, camera_ray_data
+from ..ops.megakernel import MEGAKERNEL_MAX_PRIMS, render_samples_megakernel
+from ..utils import image as img_util
+from ..utils.config import RenderConfig
+
+
+class ProgressiveRenderer:
+    """Host-side controller.  Owns the device scene, current camera, the
+    accumulation buffer and the sample count.
+
+    ``accum`` is a [H, W, 3] float32 tensor on ``device``, updated in place
+    (``accum += new``) each step — the analog of the reference's persistent
+    ``accumulationBuffer`` (main.cu:213-218)."""
+
+    def __init__(self, scene: ScenePack, camera: Camera, width: int,
+                 height: int, config: RenderConfig = RenderConfig(),
+                 device="cuda"):
+        if scene.num_prims > MEGAKERNEL_MAX_PRIMS:
+            raise NotImplementedError(
+                f"{scene.num_prims} primitives: scenes above "
+                f"{MEGAKERNEL_MAX_PRIMS} need the sorted wavefront, which "
+                "is not ported yet (ROADMAP A6)")
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            # never fall back to another device
+            raise RuntimeError(f"device {self.device} requested but CUDA "
+                               "is not available")
+        self.scene = DeviceScene.from_pack(scene).to(self.device)
+        self.camera = camera
+        self.initial_camera = camera
+        self.width = width
+        self.height = height
+        self.config = config
+        self.samples_per_frame = config.samples_per_frame
+        self._cam_data = self._upload_camera(camera)
+        self.accum = torch.zeros((height, width, 3), dtype=torch.float32,
+                                 device=self.device)
+        self.sample_count = 0
+        self.frame_ms = 0.0
+
+    @classmethod
+    def from_xml(cls, xml_path: str,
+                 config: RenderConfig = RenderConfig(),
+                 width: Optional[int] = None,
+                 height: Optional[int] = None,
+                 device="cuda") -> "ProgressiveRenderer":
+        pack, parsed = load_scene(xml_path)
+        cam = Camera.from_parsed(parsed.camera)
+        return cls(pack, cam, width or parsed.camera.width,
+                   height or parsed.camera.height, config, device)
+
+    def _upload_camera(self, camera: Camera) -> torch.Tensor:
+        return torch.as_tensor(
+            camera_ray_data(camera, self.width, self.height),
+            device=self.device)
+
+    # -- camera interaction (main.cu:297-324 semantics) -----------------
+    def set_camera(self, camera: Camera) -> None:
+        if not camera.almost_equal(self.camera, self.config.camera_epsilon):
+            self.camera = camera
+            self._cam_data = self._upload_camera(camera)
+            self.reset_accumulation()
+
+    def reset_camera(self) -> None:
+        """'R' key / Reset button (imgui_manager.cpp:289-307)."""
+        self.set_camera(self.initial_camera)
+
+    def set_samples_per_frame(self, spf: int) -> None:
+        spf = int(np.clip(spf, self.config.spf_min, self.config.spf_max))
+        if spf != self.samples_per_frame:
+            self.samples_per_frame = spf
+            self.reset_accumulation()  # main.cu:328-332
+
+    def reset_accumulation(self) -> None:
+        self.accum.zero_()
+        self.sample_count = 0
+
+    # -- the frame step (main.cu:333-337) --------------------------------
+    def step(self, num_samples: Optional[int] = None,
+             sync: Optional[bool] = None) -> None:
+        """Add ``num_samples`` fresh samples to the accumulation buffer.
+
+        ``sync=True`` waits for the device to finish (the reference's
+        per-frame cudaDeviceSynchronize, main.cu:336, via
+        ``torch.cuda.synchronize``), which is what makes ``frame_ms`` the
+        frame's time.  ``sync=False`` lets successive steps queue on the
+        stream.  Default comes from ``config.sync_each_frame``."""
+        ns = num_samples or self.samples_per_frame
+        if sync is None:
+            sync = self.config.sync_each_frame
+        t0 = time.perf_counter()
+        new = render_samples_megakernel(
+            self.scene, self._cam_data, self.width, self.height,
+            self.sample_count, ns, self.config.seed, self.config.max_depth,
+            self.config.rr_start_depth, self.config.enable_nee)
+        self.accum += new
+        if sync and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.frame_ms = (time.perf_counter() - t0) * 1e3
+        self.sample_count += ns
+
+    # -- output ----------------------------------------------------------
+    def hdr(self) -> np.ndarray:
+        return self.accum.cpu().numpy() / max(self.sample_count, 1)
+
+    def framebuffer(self) -> np.ndarray:
+        """Tonemapped uint8 [H,W,3] (UpdateTexture semantics)."""
+        return img_util.tonemap(self.accum.cpu().numpy(), self.sample_count)
+
+    def save_png(self, path: str) -> None:
+        img_util.write_png(path, self.framebuffer())
+
+    # -- checkpoint / resume (capability beyond the reference; SURVEY §5) -
+    def save_checkpoint(self, path: str) -> None:
+        img_util.save_exr_like_npz(
+            path, self.accum.cpu().numpy(), self.sample_count,
+            camera=np.array(self.camera.lookfrom + self.camera.lookat
+                            + self.camera.up + (self.camera.vfov,)))
+
+    def load_checkpoint(self, path: str) -> None:
+        with np.load(path) as data:
+            accum = data["accum"]
+            cam = data["camera"]
+            sample_count = int(data["sample_count"])
+        if accum.shape != (self.height, self.width, 3):
+            raise ValueError("checkpoint resolution mismatch")
+        self.set_camera(Camera(tuple(cam[0:3]), tuple(cam[3:6]),
+                               tuple(cam[6:9]), float(cam[9])))
+        self.accum = torch.as_tensor(accum, dtype=torch.float32,
+                                     device=self.device).clone()
+        self.sample_count = sample_count

@@ -1,0 +1,35 @@
+"""Runtime configuration.
+
+The port of ``pathtracer_cuda_interactive_tpu/utils/config.py``.  The
+reference scatters its knobs across compile-time constants (SURVEY.md §5
+"Config/flag system": MAX_DEPTH 50 radiance.cuh:12, RR start depth 5
+radiance.cuh:68, camera epsilon 1e-5 main.cu:298, default 2 samples/frame
+main.cu:131, RNG seed 1984 main.cu:61, UI ranges imgui_manager.cpp:101-105).
+Here they live in one dataclass.  Fields of the JAX package's config that
+nothing in the port reads yet return with their slices: the viewer's
+(``fov_*``, ``move_speed``, ``mouse_sensitivity``) and the large-scene
+engine's (``large_scene_mode``, ``wavefront_*``); its ``setup_jax`` has no
+counterpart.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+
+@dataclass(frozen=True)
+class RenderConfig:
+    max_depth: int = 50            # radiance.cuh:12
+    rr_start_depth: int = 5        # radiance.cuh:68
+    camera_epsilon: float = 1e-5   # main.cu:298
+    samples_per_frame: int = 2     # main.cu:131
+    seed: int = 1984               # main.cu:61
+    spf_min: int = 1               # imgui_manager.cpp:105
+    spf_max: int = 10
+    # block on the device each frame (cudaDeviceSynchronize analog,
+    # main.cu:336), which makes frame_ms the frame's device time.  False
+    # lets frames queue on the stream, for throughput runs.
+    sync_each_frame: bool = True
+    # next-event estimation for point lights — beyond the reference, which
+    # parses point lights but never samples them (SURVEY.md §3.5)
+    enable_nee: bool = False

@@ -1,0 +1,159 @@
+"""The port's progressive renderer and offline CLI on the CPU.
+
+Accumulation, camera-epsilon and samples-per-frame resets and the
+checkpoint behave as in the JAX package's renderer, and after two frames
+its image matches the JAX ProgressiveRenderer (its "xla" mode on the CPU)
+to the shallow criterion of tests/test_megakernel.py:57-60.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from pathtracer_cuda_interactive_tpu.render.renderer import (
+    ProgressiveRenderer as JaxProgressiveRenderer)
+from pathtracer_cuda_interactive_tpu.utils.config import (
+    RenderConfig as JaxRenderConfig)
+from pathtracer_cuda_interactive_tpu_torch import SCENES_DIR
+from pathtracer_cuda_interactive_tpu_torch.models.ir import (
+    ParsedCamera, ParsedDiffuse, ParsedScene, ParsedSphere)
+from pathtracer_cuda_interactive_tpu_torch.models.scenepack import pack_scene
+from pathtracer_cuda_interactive_tpu_torch.ops.camera import Camera
+from pathtracer_cuda_interactive_tpu_torch.render import offline
+from pathtracer_cuda_interactive_tpu_torch.render.renderer import (
+    ProgressiveRenderer)
+from pathtracer_cuda_interactive_tpu_torch.utils import image
+from pathtracer_cuda_interactive_tpu_torch.utils.config import RenderConfig
+
+W, H = 32, 24
+CBOX = str(SCENES_DIR / "cbox_rect.xml")
+SHALLOW = RenderConfig(max_depth=4)
+
+
+def _renderer(config=SHALLOW, path=CBOX):
+    return ProgressiveRenderer.from_xml(path, config, width=W, height=H,
+                                        device="cpu")
+
+
+def _moved(cam: Camera, dz: float) -> Camera:
+    return Camera(cam.lookfrom[:2] + (cam.lookfrom[2] + dz,), cam.lookat,
+                  cam.up, cam.vfov)
+
+
+def test_two_single_steps_equal_one_double_step():
+    a = _renderer()
+    a.step(1)
+    a.step(1)
+    b = _renderer()
+    b.step(2)
+    assert a.sample_count == b.sample_count == 2
+    assert torch.equal(a.accum, b.accum)
+    assert a.accum.shape == (H, W, 3) and a.accum.dtype == torch.float32
+    assert a.frame_ms > 0.0
+
+
+def test_camera_epsilon_and_spf_reset():
+    r = _renderer()
+    r.step()
+    assert r.sample_count == r.config.samples_per_frame == 2
+    before = r.accum.clone()
+    r.set_camera(_moved(r.camera, 5e-6))          # under 1e-5: kept
+    assert r.sample_count == 2 and torch.equal(r.accum, before)
+    r.set_camera(_moved(r.camera, 1e-3))          # a real move: reset
+    assert r.sample_count == 0 and float(r.accum.abs().max()) == 0.0
+    r.step()
+    r.set_samples_per_frame(2)                    # unchanged: kept
+    assert r.sample_count == 2
+    r.set_samples_per_frame(4)
+    assert r.sample_count == 0 and r.samples_per_frame == 4
+    r.step()
+    assert r.sample_count == 4
+    r.reset_camera()
+    assert r.sample_count == 0 and r.camera == r.initial_camera
+
+
+def test_checkpoint_round_trip(tmp_path):
+    r = _renderer()
+    r.step(3)
+    r.set_camera(_moved(r.camera, 1e-3))
+    r.step(2)
+    path = str(tmp_path / "ck.npz")
+    r.save_checkpoint(path)
+    s = _renderer()
+    s.load_checkpoint(path)
+    assert s.sample_count == 2
+    assert s.camera.almost_equal(r.camera)
+    assert torch.equal(s.accum, r.accum)
+    np.testing.assert_array_equal(s.framebuffer(), r.framebuffer())
+    # resuming continues the same sample streams
+    r.step(1)
+    s.step(1)
+    assert torch.equal(s.accum, r.accum)
+
+
+def test_two_frames_match_jax_renderer():
+    jax_r = JaxProgressiveRenderer.from_xml(
+        CBOX, JaxRenderConfig(max_depth=4), width=W, height=H)
+    assert jax_r.mode == "xla"
+    r = _renderer()
+    for _ in range(2):
+        jax_r.step()
+        r.step()
+    ref, got = jax_r.hdr(), r.hdr()
+    assert got.dtype == np.float32 and got.shape == ref.shape == (H, W, 3)
+    bad = ~np.isclose(got, ref, rtol=1e-4, atol=1e-4)
+    assert bad.sum() <= max(1e-4 * bad.size, 2)
+    assert np.abs(got - ref).mean() < 1e-4
+
+
+def test_png_output(tmp_path):
+    r = _renderer(path=str(SCENES_DIR / "spheres.xml"))
+    r.step(2)
+    path = str(tmp_path / "out.png")
+    r.save_png(path)
+    img = image.read_png(path)
+    np.testing.assert_array_equal(img, r.framebuffer())
+    assert img.shape == (H, W, 3) and img.std() > 0
+
+
+def test_cuda_without_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ProgressiveRenderer.from_xml(CBOX, width=W, height=H, device="cuda")
+
+
+def test_large_scene_not_ported_yet():
+    spheres = [ParsedSphere(0, -1, np.array([i, 0, -5], np.float32), 0.4)
+               for i in range(513)]
+    pack = pack_scene(ParsedScene(
+        ParsedCamera(np.zeros(3, np.float32), np.array([0, 0, -1], np.float32),
+                     np.array([0, 1, 0], np.float32), 45.0, W, H),
+        [ParsedDiffuse(np.full(3, 0.5, np.float32))], [], spheres,
+        np.full(3, 0.5, np.float32), 4))
+    cam = Camera((0.0, 0.0, 0.0), (0.0, 0.0, -1.0), (0.0, 1.0, 0.0), 45.0)
+    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+        ProgressiveRenderer(pack, cam, W, H, device="cpu")
+
+
+def test_config_matches_the_jax_defaults():
+    ours = dataclasses.asdict(RenderConfig())
+    theirs = dataclasses.asdict(JaxRenderConfig())
+    for key, value in ours.items():
+        assert theirs[key] == value, key
+
+
+def test_offline_cli_writes_png(tmp_path, capsys):
+    out = tmp_path / "cli.png"
+    ck = tmp_path / "cli.npz"
+    assert offline.main([str(SCENES_DIR / "pointlight.xml"), "--device", "cpu",
+                         "--spp", "3", "--batch", "2", "--width", str(W),
+                         "--height", str(H), "--max-depth", "3", "--nee",
+                         "-o", str(out), "--checkpoint", str(ck)]) == 0
+    img = image.read_png(str(out))
+    assert img.shape == (H, W, 3) and img.mean() > 0
+    with np.load(ck) as data:
+        assert int(data["sample_count"]) == 3
+    assert "Rendered 3 spp" in capsys.readouterr().out
