@@ -9,14 +9,28 @@ JAX, and fails with a non-zero exit code if any phase fails:
 
 1. the card's name and power limit (nvidia-smi);
 2. the megakernel build (csrc/megakernel.cu, nvcc for sm_90a) and its time;
-3. the kernel against its plain torch version on the card, on the in-repo
-   sphere, Cornell-box and point-light scenes at 160x120 and on the Cornell
-   box at the main path's 640x480, each at depth 4 (shallow criterion) and
-   depth 12 (statistical criterion), with both versions timed at the main
-   path's shape;
-4. the main path: ProgressiveRenderer on the rect Cornell box at 640x480,
-   2 samples per frame, depth 50, on cuda — 30 synced frames after warmup,
-   the launch counter, the camera and samples-per-frame resets, a finite
+2b. the brick-trace build (csrc/brick_trace.cu, kernel B2), started at the
+   same time as the megakernel's, with its time and ptxas report;
+3. the megakernel against its plain torch version on the card, on the
+   in-repo sphere, Cornell-box and point-light scenes at 160x120 and on the
+   Cornell box at the main path's 640x480, each at depth 4 (shallow
+   criterion) and depth 12 (statistical criterion), with both versions
+   timed at the main path's shape;
+3b. kernel B2 against its plain version: on the primary wave and a sorted
+   first-bounce wave of a 640x480, 2-sample render of scenes/blob_box.xml;
+   in whole wavefront renders at 160x120, depth 4 (shallow) and 12
+   (statistical), NEE off and on; then the large scene is built (blob_box
+   subdivided three levels, 327,692 triangles), and on its primary and
+   first-bounce waves of a 640x480, 2-sample render, the waves the main
+   path launches, both versions are compared and timed;
+4. the small-scene main path: ProgressiveRenderer on the rect Cornell box
+   at 640x480, 2 samples per frame, depth 50, on cuda — 30 synced frames
+   after warmup, the launch counters, the camera and samples-per-frame
+   resets, a finite non-flat image and a PNG;
+4b. the large-scene main path: ProgressiveRenderer on the subdivided
+   blob_box at 640x480, 2 samples per frame, depth 50, on cuda (the
+   sorted wavefront) — 10 synced frames after warmup, B2's launches
+   against the waves the renderer traced, a camera reset, a finite
    non-flat image and a PNG;
 5. the offline CLI on cuda.
 
@@ -92,6 +106,32 @@ def cuda_ms(fn, repeats: int) -> float:
     return start.elapsed_time(stop) / repeats
 
 
+def wave_check(got: np.ndarray, ref: np.ndarray) -> dict:
+    """tests/test_wavefront.py:37-39: fewer than 1e-3 of the elements
+    outside rtol = atol = 1e-4, and a mean absolute error below 1e-3."""
+    bad = ~np.isclose(got, ref, rtol=1e-4, atol=1e-4)
+    err = np.abs(got - ref)
+    ok = bad.mean() < 1e-3 and err.mean() < 1e-3
+    return {"criterion": "wavefront shallow", "ok": bool(ok),
+            "mismatch_share": float(bad.mean()),
+            "mean_abs_err": float(err.mean()),
+            "max_abs_err": float(err.max())}
+
+
+def trace_check(t, slot, ref_t, ref_slot) -> dict:
+    """Kernel B2 against its plain version on one wave: slot equal and t
+    within rtol 1e-5 on all but at most 1e-4 of the rays (equal-t ties on
+    shared edges)."""
+    t, slot = t.cpu().numpy(), slot.cpu().numpy()
+    ref_t, ref_slot = ref_t.cpu().numpy(), ref_slot.cpu().numpy()
+    differ = (slot != ref_slot) | ~np.isclose(t, ref_t, rtol=1e-5, atol=0.0)
+    both = (slot == ref_slot) & np.isfinite(t) & np.isfinite(ref_t)
+    err = float(np.abs(t[both] - ref_t[both]).max()) if both.any() else 0.0
+    return {"ok": bool(differ.mean() <= 1e-4), "rays": int(len(t)),
+            "mismatch_share": float(differ.mean()),
+            "hit_share": float((slot >= 0).mean()), "max_abs_err": err}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -100,18 +140,35 @@ def main(argv=None) -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
-    from pathtracer_cuda_interactive_tpu_torch import SCENES_DIR
+    try:
+        from pathtracer_cuda_interactive_tpu_torch import SCENES_DIR
+    except ImportError as exc:
+        raise SystemExit("chip_smoke: the port package "
+                         "pathtracer_cuda_interactive_tpu_torch is not "
+                         "importable; run this script from the root of a "
+                         f"checkout of the repository ({exc})")
+    from pathtracer_cuda_interactive_tpu_torch.io.xml_scene import (
+        parse_scene)
+    from pathtracer_cuda_interactive_tpu_torch.models.bricks import BrickSet
     from pathtracer_cuda_interactive_tpu_torch.models.device_scene import (
         DeviceScene)
     from pathtracer_cuda_interactive_tpu_torch.models.scenepack import (
-        load_scene)
+        load_scene, pack_scene)
+    from pathtracer_cuda_interactive_tpu_torch.models.subdivide import (
+        subdivide_scene)
+    from pathtracer_cuda_interactive_tpu_torch.ops import cuda_build
     from pathtracer_cuda_interactive_tpu_torch.ops import integrator
     from pathtracer_cuda_interactive_tpu_torch.ops import megakernel as mk
+    from pathtracer_cuda_interactive_tpu_torch.ops import wavefront as wf
+    from pathtracer_cuda_interactive_tpu_torch.ops.brickkernel import (
+        trace_bricks_plain)
     from pathtracer_cuda_interactive_tpu_torch.ops.camera import (
         Camera, camera_ray_data)
     from pathtracer_cuda_interactive_tpu_torch.render import offline
     from pathtracer_cuda_interactive_tpu_torch.render.renderer import (
         ProgressiveRenderer)
+    from pathtracer_cuda_interactive_tpu_torch.utils.config import (
+        RenderConfig)
 
     dev = torch.device("cuda")
     results = {}
@@ -124,12 +181,16 @@ def main(argv=None) -> int:
           f"device 0: {kind}")
     results["card"] = card
 
-    # -- 2. the kernel build ----------------------------------------------
+    # -- 2 and 2b. the kernel builds: one nvcc per source, started together
     t0 = time.perf_counter()
+    built = cuda_build.build_all([mk.SOURCE, wf.SOURCE])
     mk.load_library()
+    wf.load_library()
     build_s = time.perf_counter() - t0
-    print(f"megakernel build+load: {build_s:.2f} s")
-    results["build_s"] = build_s
+    print(f"megakernel build {built[mk.SOURCE]:.2f} s, brick_trace build "
+          f"{built[wf.SOURCE]:.2f} s (in parallel); build+load {build_s:.2f} s")
+    results.update(build_s=build_s, megakernel_build_s=built[mk.SOURCE],
+                   brick_trace_build_s=built[wf.SOURCE])
 
     # -- 3. kernel against its plain version on the card ------------------
     def load(name, width, height):
@@ -197,8 +258,127 @@ def main(argv=None) -> int:
                    avg_path_length=path_len)
     del scene, cd
 
+    # -- 3b. kernel B2 against its plain version on the card ---------------
+    def capture_waves(bricks, cd, width, height, n_waves):
+        """The first waves of a plain-traced wavefront render of SPP
+        samples, as (org, dirn, tnear): the primary wave, then sorted bounce
+        waves, at the size the main path's frames launch them."""
+        waves = []
+
+        def recording(b, org, dirn, tnear):
+            waves.append((org, dirn, tnear))
+            return trace_bricks_plain(b, org, dirn, tnear)
+
+        wf.render_samples_wavefront(bricks, cd, width, height, 0, SPP,
+                                    max_depth=n_waves, tracer=recording)
+        return waves[:n_waves]
+
+    def compare_waves(bricks, waves, label):
+        out = []
+        for (org, dirn, tnear), name in zip(waves, ("primary", "bounce 1")):
+            t, slot = wf.trace_bricks_cuda(bricks, *org, *dirn, tnear)
+            ref_t, ref_slot = trace_bricks_plain(bricks, org, dirn, tnear)
+            torch.cuda.synchronize()
+            res = trace_check(t, slot, ref_t, ref_slot)
+            res.update(scene=label, wave=name)
+            out.append(res)
+            print(f"B2 vs plain {label} {name} wave: {res['rays']} rays, "
+                  f"hit share {res['hit_share']:.4f}, mismatch share "
+                  f"{res['mismatch_share']:.3e}, max abs err "
+                  f"{res['max_abs_err']:.3e} -> "
+                  f"{'ok' if res['ok'] else 'FAIL'}")
+        return out
+
+    blob_pack, blob_parsed = load_scene(str(SCENES_DIR / "blob_box.xml"))
+    blob_cam = Camera.from_parsed(blob_parsed.camera)
+    blob = BrickSet.from_pack(blob_pack).to(dev)
+    cd = torch.from_numpy(camera_ray_data(blob_cam, MAIN_W, MAIN_H)).to(dev)
+    b2_checks = compare_waves(blob, capture_waves(blob, cd, MAIN_W, MAIN_H, 2),
+                              "blob_box")
+    b2_renders = []
+    cd = torch.from_numpy(camera_ray_data(blob_cam, SMALL_W, SMALL_H)).to(dev)
+    for nee in (False, True):
+        for depth, check in ((4, wave_check), (12, deep_check)):
+            got = wf.render_samples_wavefront(blob, cd, SMALL_W, SMALL_H, 0,
+                                              SPP, max_depth=depth, nee=nee)
+            ref = wf.render_samples_wavefront(blob, cd, SMALL_W, SMALL_H, 0,
+                                              SPP, max_depth=depth, nee=nee,
+                                              tracer=trace_bricks_plain)
+            torch.cuda.synchronize()
+            res = check(got.cpu().numpy(), ref.cpu().numpy())
+            res.update(scene="blob_box", nee=nee, width=SMALL_W,
+                       height=SMALL_H, spp=SPP, depth=depth)
+            b2_renders.append(res)
+            print(f"wavefront B2 vs plain blob_box nee={nee} "
+                  f"{SMALL_W}x{SMALL_H} depth {depth} ({res['criterion']}): "
+                  f"mismatch share {res['mismatch_share']:.3e}, "
+                  f"max abs err {res['max_abs_err']:.3e}, "
+                  f"mean abs err {res['mean_abs_err']:.3e} "
+                  f"-> {'ok' if res['ok'] else 'FAIL'}")
+    del blob
+
+    def require_agreement(checks):
+        failed = [c for c in checks if not c["ok"]]
+        if failed:
+            raise SystemExit(f"chip_smoke: kernel B2 disagrees with its "
+                             f"plain version: {failed}")
+
+    require_agreement(b2_checks + b2_renders)
+
+    # the large scene of the main path: blob_box subdivided three levels
+    t0 = time.perf_counter()
+    big_parsed = subdivide_scene(parse_scene(str(SCENES_DIR / "blob_box.xml")),
+                                 levels=3)
+    big_pack = pack_scene(big_parsed)
+    big_host = BrickSet.from_pack(big_pack)
+    scene_build_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    big = big_host.to(dev)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    big_cam = Camera.from_parsed(big_parsed.camera)
+    print(f"large scene: {big_pack.num_triangles} triangles, "
+          f"{big.num_bricks} bricks, {big.num_top} top nodes, depth "
+          f"{big.top_depth}; parse+subdivide+pack+SAH+bricks "
+          f"{scene_build_s:.2f} s; upload {big.nbytes} bytes "
+          f"(brick_data {big.brick_data.numel() * 4}) in {upload_s:.4f} s")
+    cd = torch.from_numpy(camera_ray_data(big_cam, MAIN_W, MAIN_H)).to(dev)
+    big_waves = capture_waves(big, cd, MAIN_W, MAIN_H, 2)
+    if big_waves[0][0].x.numel() != MAIN_W * MAIN_H * SPP:
+        raise SystemExit("chip_smoke: the captured primary wave is not the "
+                         "main path's")
+    b2_checks += compare_waves(big, big_waves, "blob_box x3")
+    require_agreement(b2_checks)
+    wave_ms = {}
+    for (org, dirn, tnear), name in zip(big_waves, ("primary", "bounce 1")):
+        timings = {"kernel_ms": [], "plain_ms": []}
+        for which in ("plain", "kernel", "kernel", "plain"):
+            fn = ((lambda: wf.trace_bricks_cuda(big, *org, *dirn, tnear))
+                  if which == "kernel"
+                  else (lambda: trace_bricks_plain(big, org, dirn, tnear)))
+            timings[f"{which}_ms"].append(
+                cuda_ms(fn, 20 if which == "kernel" else 1))
+        wave_ms[name] = dict(
+            rays=int(org.x.numel()), timings=timings,
+            kernel_ms=statistics.median(timings["kernel_ms"]),
+            plain_ms=statistics.median(timings["plain_ms"]))
+        print(f"B2 timing blob_box x3 {MAIN_W}x{MAIN_H} {name} wave "
+              f"({org.x.numel()} rays): kernel "
+              f"{wave_ms[name]['kernel_ms']:.4f} ms {timings['kernel_ms']}, "
+              f"plain {wave_ms[name]['plain_ms']:.2f} ms "
+              f"{timings['plain_ms']}")
+    del big_waves
+    results.update(b2_waves=b2_checks, b2_renders=b2_renders,
+                   b2_wave_ms=wave_ms, large_scene_build_s=scene_build_s,
+                   large_scene_upload_s=upload_s,
+                   large_scene_bytes=big.nbytes,
+                   brick_data_bytes=big.brick_data.numel() * 4)
+    b2_err = max(c["max_abs_err"] for c in b2_checks)
+
     # -- 4. the main path ---------------------------------------------------
     mk.megakernel_cuda.launches = 0
+    wf.trace_bricks_cuda.launches = 0
     renderer = ProgressiveRenderer.from_xml(
         str(SCENES_DIR / "cbox_rect.xml"), width=MAIN_W, height=MAIN_H,
         device="cuda")
@@ -210,9 +390,10 @@ def main(argv=None) -> int:
         renderer.step(sync=True)
         frame_ms.append(renderer.frame_ms)
     launches = mk.megakernel_cuda.launches
-    if launches != warmup + frames:
+    if launches != warmup + frames or wf.trace_bricks_cuda.launches != 0:
         raise SystemExit(f"chip_smoke: {launches} kernel launches for "
-                         f"{warmup + frames} frames")
+                         f"{warmup + frames} frames, "
+                         f"{wf.trace_bricks_cuda.launches} brick traces")
     median_ms = statistics.median(frame_ms)
     # the highest percentile with ten frames beyond it
     tail_ms = sorted(frame_ms)[frames - 11]
@@ -251,6 +432,70 @@ def main(argv=None) -> int:
                    msamples_per_s=msamples, launches=launches,
                    image_mean=float(img.mean()))
 
+    # -- 4b. the large-scene main path ----------------------------------------
+    stats = {}
+    wf.render_samples_wavefront(big, cd, MAIN_W, MAIN_H, 0, SPP, stats=stats)
+    big_path_len = stats["rays"] / (MAIN_W * MAIN_H * SPP)
+    big_renderer = ProgressiveRenderer(big, big_cam, MAIN_W, MAIN_H,
+                                       RenderConfig(), device="cuda")
+    if big_renderer.mode != "wavefront":
+        raise SystemExit(f"chip_smoke: large scene took {big_renderer.mode}")
+    mk.megakernel_cuda.launches = 0
+    wf.trace_bricks_cuda.launches = 0
+    waves0 = big_renderer.waves
+    warmup, big_frames = 2, 10
+    for _ in range(warmup):
+        big_renderer.step(sync=True)
+    big_ms = []
+    for _ in range(big_frames):
+        big_renderer.step(sync=True)
+        big_ms.append(big_renderer.frame_ms)
+    b2_launches = wf.trace_bricks_cuda.launches
+    waves = big_renderer.waves - waves0
+    if b2_launches != waves or waves < warmup + big_frames \
+            or mk.megakernel_cuda.launches != 0:
+        raise SystemExit(f"chip_smoke: {b2_launches} B2 launches for {waves} "
+                         f"waves, {mk.megakernel_cuda.launches} megakernel "
+                         f"launches on the large scene")
+    big_median = statistics.median(big_ms)
+    big_msamples = MAIN_W * MAIN_H * SPP / (big_median * 1e-3) / 1e6
+    print(f"large main path {MAIN_W}x{MAIN_H} spf {SPP} depth 50: "
+          f"{big_frames} synced frames, median {big_median:.4f} ms, max "
+          f"{max(big_ms):.4f} ms (min {min(big_ms):.4f}), "
+          f"{big_msamples:.4f} Msamples/s, "
+          f"{big_msamples * big_path_len:.4f} Mrays/s, "
+          f"{waves / (warmup + big_frames):.2f} waves per frame, avg path "
+          f"length {big_path_len:.4f} rays/sample; B2 launches {b2_launches} "
+          f"for {waves} waves; scene build {scene_build_s:.2f} s, "
+          f"brick_data {big.brick_data.numel() * 4} bytes")
+    big_img = big_renderer.hdr()
+    if not (big_img.shape == (MAIN_H, MAIN_W, 3)
+            and np.isfinite(big_img).all() and big_img.mean() > 0
+            and big_img.std() > 0):
+        raise SystemExit("chip_smoke: large-scene image is not finite and "
+                         "non-flat")
+    big_png = mk.BUILD_DIR / "chip_smoke_blob_box_x3.png"
+    big_renderer.save_png(str(big_png))
+    cam = big_renderer.camera
+    big_renderer.set_camera(Camera((0.2,) + tuple(cam.lookfrom[1:]),
+                                   cam.lookat, cam.up, cam.vfov))
+    if big_renderer.sample_count != 0:
+        raise SystemExit("chip_smoke: a camera move did not reset the large "
+                         "scene")
+    big_renderer.step()
+    if big_renderer.sample_count != SPP \
+            or not np.isfinite(big_renderer.hdr()).all():
+        raise SystemExit("chip_smoke: large-scene step after the reset "
+                         "failed")
+    results.update(large_frame_ms=big_ms, large_median_frame_ms=big_median,
+                   large_max_frame_ms=max(big_ms),
+                   large_msamples_per_s=big_msamples,
+                   large_waves_per_frame=waves / (warmup + big_frames),
+                   large_avg_path_length=big_path_len,
+                   b2_launches=b2_launches,
+                   large_image_mean=float(big_img.mean()))
+    del big_renderer, big
+
     # -- 5. the offline CLI on cuda -----------------------------------------
     cli_png = mk.BUILD_DIR / "chip_smoke_cli.png"
     before = mk.megakernel_cuda.launches
@@ -263,21 +508,31 @@ def main(argv=None) -> int:
     if args.out:
         out = Path(args.out)
         out.mkdir(parents=True, exist_ok=True)
-        shutil.copy(png, out / png.name)
-        shutil.copy(cli_png, out / cli_png.name)
+        for path in (png, big_png, cli_png):
+            shutil.copy(path, out / path.name)
         (out / "chip_smoke_results.json").write_text(
             json.dumps(results, indent=1))
 
-    src = Path(mk.__file__).resolve().parent.parent / "csrc" / "megakernel.cu"
+    root = Path(__file__).resolve().parent
     print(json.dumps({"kernels": [{
         "name": "megakernel",
         "route": "cuda",
-        "source": str(src.relative_to(Path(__file__).resolve().parent)),
+        "source": str(mk.SOURCE.resolve().relative_to(root)),
         "replaces": "pathtracer_cuda_interactive_tpu/ops/megakernel.py:440",
         "launches": launches,
         "max_abs_err": main_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
+    }, {
+        # times: one sorted first-bounce wave of the large main path
+        "name": "brick_trace",
+        "route": "cuda",
+        "source": str(wf.SOURCE.resolve().relative_to(root)),
+        "replaces": "pathtracer_cuda_interactive_tpu/ops/wavefront.py:115",
+        "launches": b2_launches,
+        "max_abs_err": b2_err,
+        "ms": wave_ms["bounce 1"]["kernel_ms"],
+        "plain_ms": wave_ms["bounce 1"]["plain_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

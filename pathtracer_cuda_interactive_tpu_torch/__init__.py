@@ -3,10 +3,12 @@ progressive path tracer in ``pathtracer_cuda_interactive_tpu``.
 
 Same subpackage layout and module names as the JAX package, which stays the
 reference it is tested against: ``io/`` and ``models/`` build scenes on the
-host in numpy, ``ops/`` holds the device code in torch plus the hand-written
-CUDA megakernel (``csrc/megakernel.cu``), ``render/`` the progressive
-renderer and the offline CLI.  This package imports torch and numpy, never
-jax.  ``scenes/`` holds small in-repo scenes.
+host in numpy, ``ops/`` holds the device code in torch and the wrappers of
+the hand-written CUDA kernels in ``csrc/`` (``megakernel.cu`` for small
+scenes, ``brick_trace.cu`` for the sorted wavefront of large ones),
+``render/`` the progressive renderer and the offline CLI.  This package
+imports torch and numpy, never jax.  ``scenes/`` holds in-repo scenes and
+the generator of the large-scene test mesh.
 """
 
 from pathlib import Path

@@ -60,8 +60,8 @@ class DeviceScene:
     prim_em_g: torch.Tensor
     prim_em_b: torch.Tensor
     prim_flags: torch.Tensor  # [P] i32
-    # flattened BVH (fat nodes, int lanes bitcast into f32); not read by
-    # the small-scene path, carried for the BVH traversal still to port
+    # flattened BVH (fat nodes, int lanes bitcast into f32); walked by
+    # ops/trace.py in scenes above BRUTE_FORCE_MAX_PRIMS primitives
     bvh_nodes: torch.Tensor   # [N,16] f32
     # megakernel prim rows (ops/megakernel.py): one 32-float record per
     # primitive with geometry, corner shading normals and the material

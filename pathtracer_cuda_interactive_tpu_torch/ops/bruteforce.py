@@ -16,6 +16,9 @@ from . import geometry as g
 from .vec import Vec3
 
 CHUNK = 8
+# Scenes up to this many primitives brute-force in the plain integrator;
+# larger ones walk the BVH (ops/trace.py), as in the JAX package.
+BRUTE_FORCE_MAX_PRIMS = 512
 
 
 def _expand(ray_v: Vec3) -> Vec3:

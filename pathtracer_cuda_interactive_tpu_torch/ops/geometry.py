@@ -22,6 +22,43 @@ PI = math.pi
 
 
 # ---------------------------------------------------------------------------
+# Ray-AABB slab test
+# ---------------------------------------------------------------------------
+
+def slab_interval(org: Vec3, inv_dir: Vec3, box_min: Vec3, box_max: Vec3):
+    """Entry and exit distances (tn, tf) of the ray's line through the box.
+    ``torch.minimum``/``torch.maximum`` propagate NaN, as jnp's do: a ray
+    parallel to an axis whose origin lies on that slab's plane gets
+    0 * inf = NaN, and NaN fails every comparison below, so such a box is a
+    miss (the brick trace kernel, csrc/brick_trace.cu, does the same)."""
+    tx0 = (box_min.x - org.x) * inv_dir.x
+    tx1 = (box_max.x - org.x) * inv_dir.x
+    ty0 = (box_min.y - org.y) * inv_dir.y
+    ty1 = (box_max.y - org.y) * inv_dir.y
+    tz0 = (box_min.z - org.z) * inv_dir.z
+    tz1 = (box_max.z - org.z) * inv_dir.z
+    tn = torch.maximum(torch.maximum(torch.minimum(tx0, tx1),
+                                     torch.minimum(ty0, ty1)),
+                       torch.minimum(tz0, tz1))
+    tf = torch.minimum(torch.minimum(torch.maximum(tx0, tx1),
+                                     torch.maximum(ty0, ty1)),
+                       torch.maximum(tz0, tz1))
+    return tn, tf
+
+
+def slab_hit(tn, tf, t_max):
+    """tf >= max(0, tn) (reference Hit()) plus tn <= t_max closest-hit
+    pruning; NaN in tn or tf is a miss."""
+    return (tf >= torch.maximum(tn, torch.zeros_like(tn))) & (tn <= t_max)
+
+
+def slab_test(org: Vec3, inv_dir: Vec3, box_min: Vec3, box_max: Vec3, t_max):
+    """Hit mask of the ray against the box, closer than ``t_max``."""
+    tn, tf = slab_interval(org, inv_dir, box_min, box_max)
+    return slab_hit(tn, tf, t_max)
+
+
+# ---------------------------------------------------------------------------
 # Sphere intersection (shape.cuh:110-186 semantics)
 # ---------------------------------------------------------------------------
 

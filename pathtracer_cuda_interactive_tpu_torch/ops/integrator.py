@@ -20,10 +20,12 @@ Semantics matched to radiance.cuh line by line:
     p = max(0.5, 1 - max(T))                         (radiance.cuh:68-74)
   * MAX_DEPTH = 50 bounces                           (radiance.cuh:12)
 
-Scenes in this slice have at most 512 primitives, so the closest hit is
-always brute force (ops/bruteforce.py), as in the JAX package for such
-scenes (its intersect_scene); the BVH walk (its ops/trace.py) is ported
-with the large-scene slice.
+The closest hit dispatches as the JAX package's ``intersect_scene`` does:
+brute force (ops/bruteforce.py) up to ``BRUTE_FORCE_MAX_PRIMS`` primitives,
+the skip-link BVH walk (ops/trace.py) above that.  The renderer sends such
+large scenes to the sorted wavefront (ops/wavefront.py) when they hold
+triangles; this integrator is what that path is held to, and it renders the
+large sphere-only scenes (the renderer's "plain" mode).
 """
 
 from __future__ import annotations
@@ -32,12 +34,31 @@ import torch
 
 from ..models.device_scene import DeviceScene
 from . import brdf, camera, rng, shade
-from .bruteforce import intersect_brute, occluded_brute
+from .bruteforce import BRUTE_FORCE_MAX_PRIMS, intersect_brute, occluded_brute
+from .trace import trace_occluded, trace_rays
 from .vec import Vec3, dot, max_elem, where
 
 MAX_DEPTH = 50          # radiance.cuh:12
 RR_START_DEPTH = 5      # radiance.cuh:68
 SECONDARY_TNEAR = 1e-4  # radiance.cuh:65
+
+
+def intersect_scene(scene: DeviceScene, org: Vec3, dirn: Vec3, tnear):
+    """Closest hit: brute force for small scenes, the BVH walk above
+    ``BRUTE_FORCE_MAX_PRIMS``.  Returns (prim i32, -1 = miss; t)."""
+    if scene.num_prims <= BRUTE_FORCE_MAX_PRIMS:
+        return intersect_brute(scene, org, dirn, tnear)
+    return trace_rays(scene.bvh_nodes, org, dirn, tnear)
+
+
+def occluded(scene: DeviceScene, org: Vec3, dirn: Vec3, tnear, tfar):
+    """Any hit on the segment (tnear, tfar): the NEE shadow test.  Brute
+    force for small scenes, the BVH walk above ``BRUTE_FORCE_MAX_PRIMS``;
+    the JAX package always walks the BVH (trace_occluded), whose boxes
+    only cull primitives the segment misses, so the answers agree."""
+    if scene.num_prims <= BRUTE_FORCE_MAX_PRIMS:
+        return occluded_brute(scene, org, dirn, tnear, tfar)
+    return trace_occluded(scene.bvh_nodes, org, dirn, tnear, tfar)
 
 
 def _direct_point_lights(scene: DeviceScene, isect, n: Vec3, wi: Vec3,
@@ -46,10 +67,8 @@ def _direct_point_lights(scene: DeviceScene, isect, n: Vec3, wi: Vec3,
     lights but never samples them, SURVEY.md §3.5).  Deterministic (no RNG
     draws), so enabling it leaves every sample stream bit-identical.
 
-    The shadow test is a brute-force any-hit over the same primitives
-    (ops/bruteforce.py::occluded_brute), where the JAX package walks the
-    BVH (trace_occluded); the answer is the same, and the BVH walk returns
-    with ops/trace.py.  Returns the direct-lighting radiance to add."""
+    The shadow test is ``occluded``.  Returns the direct-lighting radiance
+    to add."""
     num = int(scene.light_pos.shape[0])
     shape = wi.x.shape
     out = Vec3.zeros(shape, device=wi.x.device)
@@ -61,8 +80,8 @@ def _direct_point_lights(scene: DeviceScene, isect, n: Vec3, wi: Vec3,
         dist = torch.sqrt(dist2)
         wo = d * (1.0 / torch.clamp_min(dist, 1e-20))
         ev = brdf.eval_brdf(mat, n, wi, wo)   # value includes cos/pi terms
-        occ = occluded_brute(scene, isect.position, wo, SECONDARY_TNEAR,
-                             dist * (1.0 - 1e-3))
+        occ = occluded(scene, isect.position, wo, SECONDARY_TNEAR,
+                       dist * (1.0 - 1e-3))
         inten = Vec3(scene.light_intensity[l, 0],
                      scene.light_intensity[l, 1],
                      scene.light_intensity[l, 2])
@@ -78,7 +97,7 @@ def _bounce(scene: DeviceScene, org, dirn, T, L, active, tnear, state,
     """One bounce for every ray.  rr_depth: the bounce index for RR
     gating, or None to disable RR.  nee: sample point lights at every
     hit."""
-    prim, _t = intersect_brute(scene, org, dirn, tnear)
+    prim, _t = intersect_scene(scene, org, dirn, tnear)
     zeros = Vec3.zeros(prim.shape, device=prim.device)
 
     miss = prim < 0

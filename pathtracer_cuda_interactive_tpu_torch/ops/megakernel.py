@@ -17,75 +17,36 @@ radiance sum of ``num_samples`` full paths.
 
 The kernel is built at first use with ``nvcc`` for ``sm_90a`` from the
 source in this package into ``_build/`` beside it, under a file name keyed
-on a hash of the source and flags, and bound with ``ctypes``.
+on a hash of the source and flags (ops/cuda_build.py), and bound with
+``ctypes``.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 from pathlib import Path
 
 import torch
 
 from ..models.device_scene import DeviceScene
+from . import cuda_build
 from .integrator import MAX_DEPTH, RR_START_DEPTH, render_pixel_sums
 
 # Scenes up to this many primitives render through the megakernel (its
 # per-primitive loop is O(P); the table fits in one block's shared memory).
 MEGAKERNEL_MAX_PRIMS = 512
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "megakernel.cu"
-BUILD_DIR = _PKG / "_build"
-# --fmad=false and no fast math keep the kernel's float arithmetic op for
-# op with its plain version (FMA contraction alone moves triangle-edge
-# hits); -Xptxas=-v reports registers and spills at build time.
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-Xptxas=-v", "-shared",
-              "-Xcompiler", "-fPIC")
+SOURCE = cuda_build.CSRC_DIR / "megakernel.cu"
+BUILD_DIR = cuda_build.BUILD_DIR
 
 _lib = None
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    candidate = os.path.join(cuda_home, "bin", "nvcc")
-    if os.path.exists(candidate):
-        return candidate
-    raise RuntimeError("nvcc not found (needed to build csrc/megakernel.cu)")
-
-
 def build() -> Path:
-    """Compile csrc/megakernel.cu into a shared library under _build/,
+    """Compile csrc/megakernel.cu into a shared library under BUILD_DIR,
     unless a library of this source and these flags is there already.
     Returns its path; raises if nvcc is missing or the build fails."""
-    key = hashlib.sha256(SOURCE.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"megakernel_{key}.so"
-    if lib_path.exists():
-        return lib_path
-    BUILD_DIR.mkdir(exist_ok=True)
-    tmp_path = lib_path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp_path), str(SOURCE)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp_path, lib_path)
-    print(f"megakernel: built {lib_path.name} in {seconds:.2f} s")
-    for line in (proc.stdout + proc.stderr).splitlines():
-        if line.strip():
-            print(f"  {line.strip()}")     # ptxas: registers, stack, spills
-    return lib_path
+    return cuda_build.build(SOURCE, BUILD_DIR)
 
 
 def load_library() -> ctypes.CDLL:

@@ -1,0 +1,576 @@
+"""Sorted-wavefront path tracing for large triangle scenes.
+
+The port of ``pathtracer_cuda_interactive_tpu/ops/wavefront.py``.  Bounces
+are synchronous WAVES over all rays of a frame:
+
+  wave 0   camera rays, ordered by compact screen tiles (``_wave_layout``);
+  wave b   the live rays sorted by a coherence key (default "sig_mort": a
+           16-bit target signature of which coarse scene regions the ray's
+           line can touch, ``_sig_key``, above an origin Morton code), so
+           that neighbouring rays walk the same part of the tree;
+  each     one closest-triangle trace (kernel B2, ``trace_wave_slim``),
+           the winner's record gathered and the resident spheres folded in
+           (``_record_from_slots``), optional point-light NEE with shadow
+           waves (``_nee_term``), and one bounce of shading, BSDF sampling
+           and Russian roulette (``_shade``) in torch ops (ops/brdf.py, the
+           same code the plain integrator uses).
+
+Where the JAX package keeps a static [rows, 128] ray table with an active
+mask, a ``lax.while_loop`` and a compaction ladder, this loop drops the
+dead rays from the table after every wave, stable-sorts the live ones by
+their key and stops when none is live or the depth cap is reached: the same
+rays reach the same depths with the same RNG streams (2 camera jitter
+draws, then 3 BSDF draws and 1 RR draw per bounce, as in
+ops/integrator.py).  A ray's radiance is written when it dies, into a
+[num_samples, H*W, 3] buffer at its (sample, pixel), which is unique per
+ray, and the image is that buffer's sum over samples: no float atomics, so
+renders are bit-reproducible on the card.
+
+``trace_wave_slim`` dispatches on the device of the rays: CUDA tensors
+launch the hand-written kernel (``trace_bricks_cuda``, csrc/brick_trace.cu)
+and never fall back; CPU tensors run its plain version
+(ops/brickkernel.py::trace_bricks_plain).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import re
+from pathlib import Path
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from ..models.bricks import BRICK_PRIMS, BRICK_ROWS, STACK_DEPTH, BrickSet
+from . import brdf, cuda_build, rng
+from .brickkernel import trace_bricks_plain
+from .camera import generate_primary_rays
+from .geometry import intersect_sphere
+from .integrator import MAX_DEPTH, RR_START_DEPTH, SECONDARY_TNEAR
+from .vec import Vec3, cross, dot, max_elem, normalize, where
+
+LANES = 128
+# rays per [WAVE_ROWS, 128] packet of the JAX package's layout; the primary
+# wave keeps its screen-tile order (one TILE per packet)
+WAVE_ROWS = 16
+TILE = (64, WAVE_ROWS * LANES // 64)
+INF = float("inf")
+# Cap on rays per wave; sample batches beyond it render in chunks of whole
+# samples, as in the JAX package.
+MAX_RAYS_PER_WAVE = 1 << 21
+SORT_MODES = ("sig_mort", "mort_oct", "none")
+
+SOURCE = cuda_build.CSRC_DIR / "brick_trace.cu"
+BUILD_DIR = cuda_build.BUILD_DIR
+
+_lib = None
+
+
+# -- engines -----------------------------------------------------------------
+
+def check_engine(trace: str) -> None:
+    """Accept the per-wave trace engine "slim" (kernel B2).  The JAX
+    package's other engines raise NotImplementedError: "slim[N]" and
+    "slimg[N]" are packet sizes of the TPU's packet walk, which a per-ray
+    kernel does not have; "slim2" is kernel B4 and "pairs[N]" kernel B5."""
+    if trace == "slim":
+        return
+    if re.fullmatch(r"slim\d+|slimg\d*|pairs\d*", trace):
+        raise NotImplementedError(
+            f"wavefront trace engine {trace!r} is not ported (ROADMAP A9); "
+            "the port traces with 'slim'")
+    raise ValueError(f"unknown wavefront trace engine {trace!r}")
+
+
+# -- kernel B2 on the card -----------------------------------------------------
+
+def build() -> Path:
+    """Compile csrc/brick_trace.cu into a shared library under BUILD_DIR
+    unless it is there; returns its path.  Raises if nvcc is missing or the
+    build fails."""
+    return cuda_build.build(SOURCE, BUILD_DIR)
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library, once per process."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        fn = lib.pt_brick_trace_launch
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr,   # ox oy oz dx dy dz
+                       i32, ctypes.c_float,            # n, tnear
+                       ptr, ptr, ptr,                  # boxes, links, bricks
+                       ptr, ptr,                       # out_t, out_slot
+                       ptr]                            # stream
+        fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def trace_bricks_cuda(bricks: BrickSet, ox: torch.Tensor, oy: torch.Tensor,
+                      oz: torch.Tensor, dx: torch.Tensor, dy: torch.Tensor,
+                      dz: torch.Tensor, tnear: float):
+    """Launch kernel B2 on the current stream: the closest triangle hit of
+    each of the N rays given as contiguous float32 [N] CUDA tensors.
+    Returns fresh (t [N] f32, inf on a miss; slot [N] i32, -1 on a miss).
+    Adds one to ``trace_bricks_cuda.launches`` per launch; an empty wave
+    launches nothing."""
+    if bricks.top_depth + 2 > STACK_DEPTH:
+        raise ValueError(f"top tree of depth {bricks.top_depth} is too deep "
+                         f"for the kernel's stack of {STACK_DEPTH} slots")
+    device = ox.device
+    if device.type != "cuda":
+        raise ValueError(f"trace_bricks_cuda needs CUDA tensors, got {device}")
+    n = int(ox.numel())
+    for name, t in (("ox", ox), ("oy", oy), ("oz", oz), ("dx", dx),
+                    ("dy", dy), ("dz", dz)):
+        if (t.device != device or t.dtype != torch.float32 or t.ndim != 1
+                or t.numel() != n or not t.is_contiguous()):
+            raise ValueError(f"{name}: need a contiguous float32 [{n}] "
+                             f"tensor on {device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    for name, t, dtype in (("brick_data", bricks.brick_data, torch.float32),
+                           ("top_boxes", bricks.top_boxes, torch.float32),
+                           ("top_links", bricks.top_links, torch.int32)):
+        if t.device != device or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"bricks.{name}: need a contiguous {dtype} "
+                             f"tensor on {device}, got {t.dtype} on "
+                             f"{t.device}")
+    if tuple(bricks.brick_data.shape[1:]) != (BRICK_ROWS, 128):
+        raise ValueError("bricks.brick_data: need [B, 136, 128]")
+    out_t = torch.empty(n, dtype=torch.float32, device=device)
+    out_slot = torch.empty(n, dtype=torch.int32, device=device)
+    if n == 0:
+        return out_t, out_slot
+    lib = load_library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.pt_brick_trace_launch(
+            ox.data_ptr(), oy.data_ptr(), oz.data_ptr(), dx.data_ptr(),
+            dy.data_ptr(), dz.data_ptr(), n, float(tnear),
+            bricks.top_boxes.data_ptr(), bricks.top_links.data_ptr(),
+            bricks.brick_data.data_ptr(), out_t.data_ptr(),
+            out_slot.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"brick_trace launch failed: CUDA error {err}")
+    trace_bricks_cuda.launches += 1
+    return out_t, out_slot
+
+
+trace_bricks_cuda.launches = 0
+
+
+def trace_wave_slim(bricks: BrickSet, org: Vec3, dirn: Vec3, tnear: float):
+    """(t, slot) closest triangle hit of one wave of rays ([N] components).
+    CUDA tensors launch kernel B2; CPU tensors run its plain version."""
+    device = org.x.device
+    if bricks.device != device:
+        raise ValueError(f"bricks on {bricks.device}, rays on {device}")
+    if device.type == "cpu":
+        return trace_bricks_plain(bricks, org, dirn, tnear)
+    if device.type != "cuda":
+        raise ValueError(f"no brick trace for device {device}")
+    return trace_bricks_cuda(bricks, *org, *dirn, tnear)
+
+
+# -- ray layout and sort keys --------------------------------------------------
+
+def tile_grid(width: int, height: int, tile) -> int:
+    """Number of screen tiles covering the image (JAX ops/megakernel.py)."""
+    tw, th = tile
+    return (-(-width // tw)) * (-(-height // th))
+
+
+def _wave_layout(width: int, height: int):
+    """Static slot -> pixel map: each [WAVE_ROWS, 128] packet covers one
+    compact TILE screen tile.  Padding slots (off-image) get pixel id
+    R = width * height."""
+    tw, th = TILE
+    n_blocks = tile_grid(width, height, TILE)
+    tiles_x = -(-width // tw)
+    blk = np.arange(n_blocks)[:, None, None]
+    rowid = np.arange(WAVE_ROWS)[None, :, None]
+    laneid = np.arange(LANES)[None, None, :]
+    ii = (blk % tiles_x) * tw + laneid % tw
+    jj = (blk // tiles_x) * th + rowid * (LANES // tw) + laneid // tw
+    valid = (ii < width) & (jj < height)
+    pix = np.where(valid, jj * width + ii, width * height)
+    return pix.reshape(-1).astype(np.int32), n_blocks
+
+
+def _spread3(x):
+    """Interleave the low 10 bits of int32 x with two zero bits each."""
+    x = x & 0x3FF
+    x = (x | (x << 16)) & 0x030000FF
+    x = (x | (x << 8)) & 0x0300F00F
+    x = (x | (x << 4)) & 0x030C30C3
+    x = (x | (x << 2)) & 0x09249249
+    return x
+
+
+def _octant(dirn: Vec3):
+    i32 = torch.int32
+    return ((dirn.x > 0).to(i32) * 4 + (dirn.y > 0).to(i32) * 2
+            + (dirn.z > 0).to(i32))
+
+
+def _morton(org: Vec3, lo, inv_extent, top: float):
+    def q(c, l, s):
+        return torch.clamp((c - l) * s * top, 0.0, top).to(torch.int32)
+
+    mx = _spread3(q(org.x, lo[0], inv_extent[0]))
+    my = _spread3(q(org.y, lo[1], inv_extent[1]))
+    mz = _spread3(q(org.z, lo[2], inv_extent[2]))
+    return (mx << 2) | (my << 1) | mz
+
+
+def _sort_key(org: Vec3, dirn: Vec3, lo, inv_extent):
+    """"mort_oct": 21-bit Morton code of the origin (scene-box normalized)
+    above the direction octant.  Every ray of the table is live, so there
+    is no dead-ray sentinel."""
+    return (_morton(org, lo, inv_extent, 127.0) << 3) | _octant(dirn)
+
+
+def _sig_key(org: Vec3, dirn: Vec3, lo, inv_extent, coarse):
+    """"sig_mort": the high K = len(coarse) bits say which coarse scene
+    regions (models/bricks.py::_coarse_cut) the ray's forward line can
+    touch, the low 3 * mb bits (mb = min(7, (30 - K) // 3)) are the origin
+    Morton code.  Every ray of the table is live, so there is no dead-ray
+    sentinel."""
+    inv = Vec3(1.0 / dirn.x, 1.0 / dirn.y, 1.0 / dirn.z)
+    col = lambda v: v.reshape(-1)[:, None]
+    o = Vec3(col(org.x), col(org.y), col(org.z))
+    iv = Vec3(col(inv.x), col(inv.y), col(inv.z))
+    # all K boxes at once, [N, K]; same elementwise arithmetic as the JAX
+    # per-box loop
+    tx0 = (coarse[:, 0] - o.x) * iv.x
+    tx1 = (coarse[:, 3] - o.x) * iv.x
+    ty0 = (coarse[:, 1] - o.y) * iv.y
+    ty1 = (coarse[:, 4] - o.y) * iv.y
+    tz0 = (coarse[:, 2] - o.z) * iv.z
+    tz1 = (coarse[:, 5] - o.z) * iv.z
+    tn = torch.maximum(torch.maximum(torch.minimum(tx0, tx1),
+                                     torch.minimum(ty0, ty1)),
+                       torch.minimum(tz0, tz1))
+    tf = torch.minimum(torch.minimum(torch.maximum(tx0, tx1),
+                                     torch.maximum(ty0, ty1)),
+                       torch.maximum(tz0, tz1))
+    hit = (tf >= torch.maximum(tn, torch.zeros_like(tn))) & (coarse[:, 6] > 0.0)
+    K = int(coarse.shape[0])
+    bits = torch.tensor([1 << k for k in range(K)], dtype=torch.int32,
+                        device=tn.device)
+    sig = (hit.to(torch.int32) * bits).sum(dim=1, dtype=torch.int32)
+    sig = sig.reshape(org.x.shape)
+
+    # Morton bits shrink as the signature widens so the key stays in int32
+    mb = min(7, (30 - K) // 3)
+    return (sig << (3 * mb)) | _morton(org, lo, inv_extent, float(2 ** mb - 1))
+
+
+# -- the epilogue and the bounce ----------------------------------------------
+
+def _sphere_tmin(sph_rows, S: int, org: Vec3, dirn: Vec3, tnear: float, t):
+    """Fold the resident sphere table into a best t (shadow rays)."""
+    for j in range(S):
+        c = Vec3(sph_rows[j, 1], sph_rows[j, 2], sph_rows[j, 3])
+        ts, hit = intersect_sphere(c, sph_rows[j, 4], org, dirn, tnear, t)
+        t = torch.where(hit & (ts < t), ts, t)
+    return t
+
+
+def _record_from_slots(bricks: BrickSet, t, slot, org: Vec3, dirn: Vec3,
+                       tnear: float):
+    """The 16-channel hit record of the JAX package's full trace kernel from
+    B2's (t, slot): one 32-float gather per ray of the winning triangle's
+    record, a Moller-Trumbore re-solve for (u, v), then the resident
+    spheres.  Every ray of the table is live, so there is no active mask."""
+    flat = bricks.brick_data.reshape(-1)
+    s = torch.clamp_min(slot, 0).to(torch.int64)
+    base = (s // BRICK_PRIMS) * (BRICK_ROWS * 128) + (s % BRICK_PRIMS) * 32
+    rows = flat[base[:, None] + torch.arange(32, device=flat.device)]
+    gv = lambda j: Vec3(rows[:, j], rows[:, j + 1], rows[:, j + 2])
+    p0, e1, e2 = gv(1), gv(4), gv(7)
+    pv = cross(dirn, e2)
+    det = dot(e1, pv)
+    det_s = torch.where(det == 0.0, 1.0, det)
+    tvec = org - p0
+    u = dot(tvec, pv) / det_s
+    qv = cross(tvec, e1)
+    v = dot(dirn, qv) / det_s
+
+    w = 1.0 - u - v
+    pos = Vec3(p0.x + e1.x * u + e2.x * v,
+               p0.y + e1.y * u + e2.y * v,
+               p0.z + e1.z * u + e2.z * v)
+    n0, n1, n2 = gv(10), gv(13), gv(16)
+    ni = Vec3(n0.x * w + n1.x * u + n2.x * v,
+              n0.y * w + n1.y * u + n2.y * v,
+              n0.z * w + n1.z * u + n2.z * v)
+    ng = cross(e1, e2)
+    smooth = rows[:, 28] > 0.5
+    ns = where(smooth, ni, ng)
+    mt, mp = rows[:, 19], rows[:, 23]
+    alb, em = gv(20), gv(24)
+    emit = rows[:, 27]
+    t = torch.where(slot >= 0, t, INF)
+
+    sph = bricks.sph_rows
+    for j in range(bricks.num_spheres):
+        c = Vec3(sph[j, 1], sph[j, 2], sph[j, 3])
+        ts, hit = intersect_sphere(c, sph[j, 4], org, dirn, tnear, t)
+        closer = hit & (ts < t)
+        spos = Vec3(org.x + dirn.x * ts, org.y + dirn.y * ts,
+                    org.z + dirn.z * ts)
+        sns = Vec3(spos.x - c.x, spos.y - c.y, spos.z - c.z)
+        t = torch.where(closer, ts, t)
+        pos = where(closer, spos, pos)
+        ns = where(closer, sns, ns)
+        mt = torch.where(closer, sph[j, 19], mt)
+        mp = torch.where(closer, sph[j, 23], mp)
+        alb = where(closer, Vec3(sph[j, 20], sph[j, 21], sph[j, 22]), alb)
+        em = where(closer, Vec3(sph[j, 24], sph[j, 25], sph[j, 26]), em)
+        emit = torch.where(closer, sph[j, 27], emit)
+    return (t, ns.x, ns.y, ns.z, pos.x, pos.y, pos.z, mt,
+            alb.x, alb.y, alb.z, mp, em.x, em.y, em.z, emit)
+
+
+def _material(rec) -> brdf.MatLookup:
+    mt, ar, ag, ab, mp = rec[7], rec[8], rec[9], rec[10], rec[11]
+    return brdf.MatLookup(mtype=mt.to(torch.int32), color=Vec3(ar, ag, ab),
+                          param=mp)
+
+
+def _nee_term(rec, dirn: Vec3, T: Vec3, light_rows, shadow_t) -> Vec3:
+    """Point-light next-event estimation for one wave: the direct light to
+    add at each hit (ops/integrator.py::_direct_point_lights semantics; no
+    RNG draws).  ``shadow_t(org, wo, mask) -> t`` traces a shadow wave of
+    the masked rays and returns the closest-hit distance (inf = clear)."""
+    t, nsx, nsy, nsz, px, py, pz = rec[:7]
+    zero = Vec3.zeros(t.shape, device=t.device)
+    hit = t < INF
+    ns = normalize(Vec3(nsx, nsy, nsz))
+    wi = -dirn
+    cos_view = dot(wi, ns)
+    n = where(cos_view < 0.0, -ns, ns)
+    mat = _material(rec)
+    pos = Vec3(px, py, pz)
+    out = zero
+    for l in range(int(light_rows.shape[0])):
+        d = Vec3(light_rows[l, 0] - pos.x, light_rows[l, 1] - pos.y,
+                 light_rows[l, 2] - pos.z)
+        dist2 = dot(d, d)
+        dist = torch.sqrt(dist2)
+        wo = d * (1.0 / torch.clamp_min(dist, 1e-20))
+        ev_value, _ = brdf.eval_brdf(mat, n, wi, wo)
+        ts = shadow_t(pos, wo, hit)
+        occ = ts < dist * (1.0 - 1e-3)
+        inten = Vec3(light_rows[l, 3], light_rows[l, 4], light_rows[l, 5])
+        contrib = T * ev_value * inten * (1.0 / torch.clamp_min(dist2, 1e-20))
+        out = out + where(hit & ~occ, contrib, zero)
+    return out
+
+
+def _shade(rec, org: Vec3, dirn: Vec3, T: Vec3, L: Vec3, state, depth: int,
+           bg: Vec3, rr_start_depth: int, max_depth: int):
+    """One bounce of the radiance.cuh:21-79 state machine for every ray of
+    the table, given its hit record.  Returns (org, dirn, T, L, active,
+    state); ``active`` False marks rays whose path ended."""
+    (t, nsx, nsy, nsz, px, py, pz, _mt, _ar, _ag, _ab, _mp,
+     er, eg, eb, em) = rec
+    zero = Vec3.zeros(t.shape, device=t.device)
+    miss = t == INF
+    L = L + where(miss, T * bg, zero)
+    active = ~miss
+
+    ns = normalize(Vec3(nsx, nsy, nsz))
+    wi = -dirn
+    cos_view = dot(wi, ns)
+
+    front_emit = active & (em > 0.0) & (cos_view > 0.0)
+    L = L + where(front_emit, T * Vec3(er, eg, eb), zero)
+
+    n = where(cos_view < 0.0, -ns, ns)
+
+    state, u1 = rng.next_uniform(state)
+    state, u2 = rng.next_uniform(state)
+    state, u3 = rng.next_uniform(state)
+    mat = _material(rec)
+    wo, is_spec, weight = brdf.sample_brdf_from_uniforms(mat, n, wi,
+                                                         u1, u2, u3)
+    ev_value, ev_pdf = brdf.eval_brdf(mat, n, wi, wo)
+
+    ok_spec = max_elem(weight) > 0.0
+    ok_scatter = (max_elem(ev_value) > 0.0) & (ev_pdf > 0.0)
+    pdf_safe = torch.where(ev_pdf > 0.0, ev_pdf, 1.0)
+    contrib = where(is_spec, weight, ev_value * (1.0 / pdf_safe))
+    ok = torch.where(is_spec, ok_spec, ok_scatter)
+
+    T = where(active & ok, T * contrib, T)
+    active = active & ok
+
+    org = where(active, Vec3(px, py, pz), org)
+    dirn = where(active, wo, dirn)
+
+    state, ru = rng.next_uniform(state)
+    if depth > rr_start_depth:
+        p = torch.clamp_min(1.0 - max_elem(T), 0.5)
+        kill = ru < p
+        scale = 1.0 / torch.where(~kill & (p < 1.0), 1.0 - p, 1.0)
+        T = where(active & ~kill, T * scale, T)
+        active = active & ~kill
+
+    if depth + 1 >= max_depth:
+        active = torch.zeros_like(active)
+    return org, dirn, T, L, active, state
+
+
+# -- the wave loop -----------------------------------------------------------
+
+def _sample_index(sample_start: int, samp: torch.Tensor) -> torch.Tensor:
+    """sample_start + samp modulo 2^32, as int32 bits (the JAX uint32)."""
+    s = (samp.to(torch.int64) + (sample_start & 0xFFFFFFFF)) & 0xFFFFFFFF
+    return torch.where(s >= 2 ** 31, s - 2 ** 32, s).to(torch.int32)
+
+
+def _render_chunk(bricks: BrickSet, cam_data, width: int, height: int,
+                  pix_slots, sample_start: int, num_samples: int, seed: int,
+                  max_depth: int, rr_start_depth: int, sort_mode: str,
+                  light_rows, lo, inv_extent, tracer, stats: dict):
+    """Radiance sum [H, W, 3] of samples sample_start .. + num_samples."""
+    dev = cam_data.device
+    R = width * height
+    n_slots = int(pix_slots.numel())
+    pix = pix_slots.repeat(num_samples)
+    samp = torch.arange(num_samples, dtype=torch.int32,
+                        device=dev).repeat_interleave(n_slots)
+    keep = pix < R                       # padding slots never become rays
+    pix, samp = pix[keep], samp[keep]
+
+    state = rng.seed_rays(pix, _sample_index(sample_start, samp), seed)
+    state, u1 = rng.next_uniform(state)
+    state, u2 = rng.next_uniform(state)
+    i = (pix % width).to(torch.float32)
+    j = (pix // width).to(torch.float32)
+    org, dirn = generate_primary_rays(cam_data, (i + u1) / width,
+                                      (j + u2) / height)
+    n = int(pix.numel())
+    T = Vec3.full((n,), (1.0, 1.0, 1.0), device=dev)
+    L = Vec3.zeros((n,), device=dev)
+    bg = Vec3(bricks.bg_r, bricks.bg_g, bricks.bg_b)
+    out = torch.zeros((num_samples, R, 3), dtype=torch.float32, device=dev)
+
+    def trace(o, d, tnear):
+        stats["waves"] = stats.get("waves", 0) + 1
+        stats["rays"] = stats.get("rays", 0) + int(o.x.numel())
+        return tracer(bricks, o, d, tnear)
+
+    def shadow_t(sorg, sdir, mask):
+        ts = torch.full(mask.shape, INF, dtype=torch.float32, device=dev)
+        idx = torch.nonzero(mask).reshape(-1)
+        if idx.numel():
+            so = Vec3(*(c[idx] for c in sorg))
+            sd = Vec3(*(c[idx] for c in sdir))
+            st, _ = trace(so, sd, SECONDARY_TNEAR)
+            ts[idx] = _sphere_tmin(bricks.sph_rows, bricks.num_spheres, so,
+                                   sd, SECONDARY_TNEAR, st)
+        return ts
+
+    depth = 0
+    while n:
+        if depth and sort_mode != "none":
+            with record_function("wavefront.sort"):
+                if sort_mode == "mort_oct":
+                    key = _sort_key(org, dirn, lo, inv_extent)
+                else:
+                    key = _sig_key(org, dirn, lo, inv_extent,
+                                   bricks.coarse_boxes)
+                perm = torch.sort(key, stable=True).indices
+                org = Vec3(*(c[perm] for c in org))
+                dirn = Vec3(*(c[perm] for c in dirn))
+                T = Vec3(*(c[perm] for c in T))
+                L = Vec3(*(c[perm] for c in L))
+                state, pix, samp = state[perm], pix[perm], samp[perm]
+        tnear = 0.0 if depth == 0 else SECONDARY_TNEAR
+        with record_function("wavefront.trace"):
+            t, slot = trace(org, dirn, tnear)
+        with record_function("wavefront.shade"):
+            rec = _record_from_slots(bricks, t, slot, org, dirn, tnear)
+            if light_rows is not None:
+                L = L + _nee_term(rec, dirn, T, light_rows, shadow_t)
+            org, dirn, T, L, active, state = _shade(
+                rec, org, dirn, T, L, state, depth, bg, rr_start_depth,
+                max_depth)
+        depth += 1
+
+        with record_function("wavefront.scatter"):
+            dead = ~active
+            out[samp[dead].long(), pix[dead].long()] = L.to_array()[dead]
+        with record_function("wavefront.compact"):
+            live = torch.nonzero(active).reshape(-1)
+            n = int(live.numel())
+            org = Vec3(*(c[live] for c in org))
+            dirn = Vec3(*(c[live] for c in dirn))
+            T = Vec3(*(c[live] for c in T))
+            L = Vec3(*(c[live] for c in L))
+            state, pix, samp = state[live], pix[live], samp[live]
+    return out.sum(dim=0).reshape(height, width, 3)
+
+
+def render_samples_wavefront(brickset: BrickSet, cam_data: torch.Tensor,
+                             width: int, height: int, sample_start: int,
+                             num_samples: int = 1, seed: int = 1984,
+                             max_depth: int = MAX_DEPTH,
+                             rr_start_depth: int = RR_START_DEPTH,
+                             sort_mode: str = "sig_mort", nee: bool = False,
+                             trace: str = "slim", tracer=None,
+                             stats=None) -> torch.Tensor:
+    """Large-scene drop-in for ops.integrator.render_samples: the radiance
+    SUM of ``num_samples`` passes, [H, W, 3], on ``cam_data``'s device.
+
+    ``trace`` names the per-wave engine ("slim", kernel B2; see
+    ``check_engine``).  The JAX package's ``compact_tail`` and
+    ``tail_trace`` shaped its compaction ladder; the per-wave compaction
+    here does what the ladder did, so they have no counterpart.
+    ``sort_mode`` picks the inter-wave key ("sig_mort", "mort_oct" or
+    "none").  ``tracer(bricks, org,
+    dirn, tnear) -> (t, slot)`` replaces the per-wave trace (default
+    ``trace_wave_slim``; the chip smoke passes the plain version to hold
+    the kernel to it).  ``stats``, a dict, gets the count of traced waves
+    ("waves") and rays ("rays") added to it."""
+    check_engine(trace)
+    if sort_mode not in SORT_MODES:
+        raise ValueError(f"unknown sort_mode {sort_mode!r}")
+    if max_depth < 1:
+        raise ValueError("need max_depth >= 1")
+    dev = cam_data.device
+    if brickset.device != dev:
+        raise ValueError(f"bricks on {brickset.device}, camera on {dev}")
+    tracer = tracer or trace_wave_slim
+    stats = {} if stats is None else stats
+    light_rows = None
+    if nee and int(brickset.light_pos.shape[0]) > 0:
+        light_rows = torch.cat([brickset.light_pos,
+                                brickset.light_intensity], dim=1)
+    # scene box = the top tree's root node
+    root = brickset.top_boxes[0, :6]
+    lo, hi = root[:3], root[3:]
+    inv_extent = 1.0 / torch.clamp_min(hi - lo, 1e-12)
+    pix_np, _ = _wave_layout(width, height)
+    pix_slots = torch.from_numpy(pix_np).to(dev)
+
+    chunk = max(1, MAX_RAYS_PER_WAVE // int(pix_np.shape[0]))
+    acc = None
+    done = 0
+    while done < num_samples:
+        ns = min(chunk, num_samples - done)
+        out = _render_chunk(brickset, cam_data, width, height, pix_slots,
+                            sample_start + done, ns, seed, max_depth,
+                            rr_start_depth, sort_mode, light_rows, lo,
+                            inv_extent, tracer, stats)
+        acc = out if acc is None else acc + out
+        done += ns
+    if acc is None:
+        acc = torch.zeros((height, width, 3), dtype=torch.float32, device=dev)
+    return acc

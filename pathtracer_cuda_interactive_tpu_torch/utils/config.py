@@ -7,9 +7,14 @@ radiance.cuh:68, camera epsilon 1e-5 main.cu:298, default 2 samples/frame
 main.cu:131, RNG seed 1984 main.cu:61, UI ranges imgui_manager.cpp:101-105).
 Here they live in one dataclass.  Fields of the JAX package's config that
 nothing in the port reads yet return with their slices: the viewer's
-(``fov_*``, ``move_speed``, ``mouse_sensitivity``) and the large-scene
-engine's (``large_scene_mode``, ``wavefront_*``); its ``setup_jax`` has no
-counterpart.
+(``fov_*``, ``move_speed``, ``mouse_sensitivity``); its ``setup_jax`` has
+no counterpart.  The large-scene fields keep the JAX defaults; of their
+values the port runs ``large_scene_mode="wavefront"`` and
+``wavefront_trace="slim"``, and the others raise NotImplementedError
+(render/renderer.py, ops/wavefront.py::check_engine).  The JAX package's
+``wavefront_compact_tail`` and ``wavefront_tail_trace`` shaped its
+compaction ladder; the port compacts after every wave instead
+(ops/wavefront.py), so they have no counterpart.
 """
 
 from __future__ import annotations
@@ -33,3 +38,11 @@ class RenderConfig:
     # next-event estimation for point lights — beyond the reference, which
     # parses point lights but never samples them (SURVEY.md §3.5)
     enable_nee: bool = False
+    # large-triangle-scene compute path: "wavefront", the sorted wavefront
+    # (ops/wavefront.py).  The JAX package's retired experiments ("bricks",
+    # "mx", "mx2") are not ported (ROADMAP A9, A10).
+    large_scene_mode: str = "wavefront"
+    # per-wave closest-hit engine of the wavefront: "slim", kernel B2
+    # (csrc/brick_trace.cu).  "slim[N]", "slimg[N]", "slim2" and "pairs[N]"
+    # are not ported (ROADMAP A9).
+    wavefront_trace: str = "slim"

@@ -17,11 +17,10 @@ from pathtracer_cuda_interactive_tpu.render.renderer import (
 from pathtracer_cuda_interactive_tpu.utils.config import (
     RenderConfig as JaxRenderConfig)
 from pathtracer_cuda_interactive_tpu_torch import SCENES_DIR
-from pathtracer_cuda_interactive_tpu_torch.models.ir import (
-    ParsedCamera, ParsedDiffuse, ParsedScene, ParsedSphere)
 from pathtracer_cuda_interactive_tpu_torch.models.scenepack import pack_scene
 from pathtracer_cuda_interactive_tpu_torch.ops.camera import Camera
-from pathtracer_cuda_interactive_tpu_torch.render import offline
+from pathtracer_cuda_interactive_tpu_torch.render import (
+    offline, profile_wavefront)
 from pathtracer_cuda_interactive_tpu_torch.render.renderer import (
     ProgressiveRenderer)
 from pathtracer_cuda_interactive_tpu_torch.utils import image
@@ -29,6 +28,7 @@ from pathtracer_cuda_interactive_tpu_torch.utils.config import RenderConfig
 
 W, H = 32, 24
 CBOX = str(SCENES_DIR / "cbox_rect.xml")
+BLOB_BOX = str(SCENES_DIR / "blob_box.xml")
 SHALLOW = RenderConfig(max_depth=4)
 
 
@@ -125,17 +125,99 @@ def test_cuda_without_card_raises():
         ProgressiveRenderer.from_xml(CBOX, width=W, height=H, device="cuda")
 
 
-def test_large_scene_not_ported_yet():
-    spheres = [ParsedSphere(0, -1, np.array([i, 0, -5], np.float32), 0.4)
+def test_large_scene_takes_the_wavefront_and_matches_jax():
+    """blob_box (5,133 primitives) takes the sorted wavefront; two steps of
+    one sample equal the JAX render_samples_wavefront of two samples (its
+    Pallas kernel in interpret mode), at the criterion of
+    tests/test_wavefront.py:37-39."""
+    import jax.numpy as jnp
+    from pathtracer_cuda_interactive_tpu.models import native as jax_native
+    from pathtracer_cuda_interactive_tpu.models.bricks import (
+        BrickSet as JaxBrickSet)
+    from pathtracer_cuda_interactive_tpu.models.scenepack import (
+        load_scene as jax_load_scene)
+    from pathtracer_cuda_interactive_tpu.ops import camera as jax_camera
+    from pathtracer_cuda_interactive_tpu.ops.wavefront import (
+        render_samples_wavefront)
+    config = RenderConfig(max_depth=3, samples_per_frame=1)
+    r = ProgressiveRenderer.from_xml(BLOB_BOX, config, width=W, height=H,
+                                     device="cpu")
+    assert r.mode == "wavefront"
+    r.step()
+    waves = r.waves
+    assert waves == 3          # one wave per depth, no NEE
+    r.step()
+    assert r.sample_count == 2 and r.waves == 2 * waves
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_native, "build_sah_treelets_native",
+                   lambda *args: None)
+        pack, parsed = jax_load_scene(BLOB_BOX)
+        bricks = JaxBrickSet.from_pack(pack)
+    cd = jnp.asarray(jax_camera.camera_ray_data(
+        jax_camera.Camera.from_parsed(parsed.camera), W, H))
+    ref = np.asarray(render_samples_wavefront(bricks, cd, W, H, 0, 2,
+                                              max_depth=3, interpret=True))
+    got = r.accum.numpy()
+    bad = ~np.isclose(got, ref, rtol=1e-4, atol=1e-4)
+    assert bad.mean() < 1e-3 and np.abs(got - ref).mean() < 1e-3
+    assert ref.mean() > 0.0
+
+
+def _sphere_grid(ir):
+    """513 spheres (one more than the megakernel takes) and no triangle,
+    built from the ``ir`` module of either package."""
+    spheres = [ir.ParsedSphere(0, -1, np.array([(i % 23) * 0.5 - 5.5,
+                                                (i // 23) * 0.5 - 5.5, -9],
+                                               np.float32), 0.3)
                for i in range(513)]
-    pack = pack_scene(ParsedScene(
-        ParsedCamera(np.zeros(3, np.float32), np.array([0, 0, -1], np.float32),
-                     np.array([0, 1, 0], np.float32), 45.0, W, H),
-        [ParsedDiffuse(np.full(3, 0.5, np.float32))], [], spheres,
-        np.full(3, 0.5, np.float32), 4))
-    cam = Camera((0.0, 0.0, 0.0), (0.0, 0.0, -1.0), (0.0, 1.0, 0.0), 45.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        ProgressiveRenderer(pack, cam, W, H, device="cpu")
+    return ir.ParsedScene(
+        ir.ParsedCamera(np.zeros(3, np.float32),
+                        np.array([0, 0, -1], np.float32),
+                        np.array([0, 1, 0], np.float32), 60.0, W, H),
+        [ir.ParsedDiffuse(np.full(3, 0.5, np.float32))], [], spheres,
+        np.full(3, 0.8, np.float32), 4)
+
+
+def test_large_sphere_scene_takes_the_plain_path():
+    """More than 512 primitives and no triangle: the plain integrator with
+    the BVH walk (the JAX package's "xla" mode).  Its first hits equal the
+    JAX renderer's; deeper, its frames are the integrator's own sums.  (On
+    this dense grid secondary rays graze neighbouring spheres, where XLA's
+    fused multiply-adds flip single hits, so deeper frames are not held to
+    the JAX package here; tests/test_torch_wavefront.py does that on the
+    large triangle scene.)"""
+    from pathtracer_cuda_interactive_tpu.models import ir as jax_ir
+    from pathtracer_cuda_interactive_tpu.models.scenepack import (
+        pack_scene as jax_pack_scene)
+    from pathtracer_cuda_interactive_tpu.ops.camera import (
+        Camera as JaxCamera)
+    from pathtracer_cuda_interactive_tpu_torch.models import ir
+    from pathtracer_cuda_interactive_tpu_torch.ops import integrator
+    cam = Camera((0.0, 0.0, 0.0), (0.0, 0.0, -1.0), (0.0, 1.0, 0.0), 60.0)
+    pack = pack_scene(_sphere_grid(ir))
+    r = ProgressiveRenderer(pack, cam, W, H, RenderConfig(max_depth=1),
+                            device="cpu")
+    assert r.mode == "plain"
+    jax_r = JaxProgressiveRenderer(
+        jax_pack_scene(_sphere_grid(jax_ir)),
+        JaxCamera(cam.lookfrom, cam.lookat, cam.up, cam.vfov), W, H,
+        JaxRenderConfig(max_depth=1))
+    assert jax_r.mode == "xla"
+    for _ in range(2):
+        r.step()
+        jax_r.step()
+    ref, got = jax_r.hdr(), r.hdr()
+    assert ref.mean() > 0.0 and ref.std() > 0.0
+    bad = ~np.isclose(got, ref, rtol=1e-4, atol=1e-4)
+    assert bad.sum() <= max(1e-4 * bad.size, 2)
+    assert np.abs(got - ref).mean() < 1e-4
+
+    deep = ProgressiveRenderer(pack, cam, W, H, RenderConfig(max_depth=3),
+                               device="cpu")
+    deep.step()
+    assert torch.equal(deep.accum, integrator.render_samples(
+        deep.scene, deep._cam_data, W, H, 0, 2, max_depth=3))
+    assert deep.waves == 0
 
 
 def test_config_matches_the_jax_defaults():
@@ -143,6 +225,11 @@ def test_config_matches_the_jax_defaults():
     theirs = dataclasses.asdict(JaxRenderConfig())
     for key, value in ours.items():
         assert theirs[key] == value, key
+    # the viewer's fields return with the viewer; the compaction ladder's
+    # have no counterpart (the port compacts after every wave)
+    assert set(theirs) - set(ours) == {
+        "fov_min", "fov_max", "move_speed", "mouse_sensitivity",
+        "wavefront_compact_tail", "wavefront_tail_trace"}
 
 
 def test_offline_cli_writes_png(tmp_path, capsys):
@@ -157,3 +244,21 @@ def test_offline_cli_writes_png(tmp_path, capsys):
     with np.load(ck) as data:
         assert int(data["sample_count"]) == 3
     assert "Rendered 3 spp" in capsys.readouterr().out
+
+
+def test_offline_cli_renders_the_large_scene(tmp_path, capsys):
+    out = tmp_path / "blob.png"
+    assert offline.main([BLOB_BOX, "--device", "cpu", "--spp", "2",
+                         "--batch", "1", "--width", str(W), "--height",
+                         str(H), "--max-depth", "3", "--nee",
+                         "-o", str(out)]) == 0
+    img = image.read_png(str(out))
+    assert img.shape == (H, W, 3) and img.mean() > 0 and img.std() > 0
+    text = capsys.readouterr().out
+    assert "5133 primitives" in text and "Rendered 2 spp" in text
+
+
+def test_profile_wavefront_needs_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="needs a CUDA card"):
+        profile_wavefront.main([])
