@@ -9,8 +9,10 @@ JAX, and fails with a non-zero exit code if any phase fails:
 
 1. the card's name and power limit (nvidia-smi);
 2. the megakernel build (csrc/megakernel.cu, nvcc for sm_90a) and its time;
-2b. the brick-trace build (csrc/brick_trace.cu, kernel B2), started at the
-   same time as the megakernel's, with its time and ptxas report;
+2b. the brick-trace build (csrc/brick_trace.cu, kernels B2 and B3), started
+   at the same time as the megakernel's, with its time and ptxas report;
+2c. the brick-render build (csrc/brick_render.cu, kernel B6), in the same
+   parallel build;
 3. the megakernel against its plain torch version on the card, on the
    in-repo sphere, Cornell-box and point-light scenes at 160x120 and on the
    Cornell box at the main path's 640x480, each at depth 4 (shallow
@@ -23,6 +25,14 @@ JAX, and fails with a non-zero exit code if any phase fails:
    subdivided three levels, 327,692 triangles), and on its primary and
    first-bounce waves of a 640x480, 2-sample render, the waves the main
    path launches, both versions are compared and timed;
+3c. kernel B3 (the full record with per-ray counters) against its plain
+   version on the same four waves: all 16 channels and the three counters
+   equal on all but at most 1e-4 of the rays; B3 timed against B2 and its
+   plain version on the large scene's waves;
+3d. kernel B6 against its plain version: blob_box at 160x120, 2 samples,
+   depth 4 (shallow criterion) and 12 (statistical), and the large scene at
+   640x480, 2 samples, depth 4; B6 timed at the main path's shape (640x480,
+   2 samples, depth 50) by CUDA events, its plain version once;
 4. the small-scene main path: ProgressiveRenderer on the rect Cornell box
    at 640x480, 2 samples per frame, depth 50, on cuda — 30 synced frames
    after warmup, the launch counters, the camera and samples-per-frame
@@ -32,6 +42,14 @@ JAX, and fails with a non-zero exit code if any phase fails:
    sorted wavefront) — 10 synced frames after warmup, B2's launches
    against the waves the renderer traced, a camera reset, a finite
    non-flat image and a PNG;
+4c. the large scene's "bricks" path in the same call:
+   ProgressiveRenderer with RenderConfig(large_scene_mode="bricks") at the
+   same shape — 10 synced frames after warmup, one B6 launch per frame and
+   no B2 launch, a camera reset, a finite non-flat image and a PNG, NEE
+   rerouted to the wavefront, the median frame beside 4b's;
+4d. the kernel-stats entry point (render/kernel_stats.py): B3's per-ray
+   counters and B3 against B2 on the large scene's waves, with B3's
+   launches counted;
 5. the offline CLI on cuda.
 
 Its last two lines are a JSON object describing each kernel and then
@@ -132,6 +150,22 @@ def trace_check(t, slot, ref_t, ref_slot) -> dict:
             "hit_share": float((slot >= 0).mean()), "max_abs_err": err}
 
 
+def record_check(rec, counts, ref, ref_counts) -> dict:
+    """Kernel B3 against its plain version on one wave: all 16 channels and
+    the three counters equal on all but at most 1e-4 of the rays (equal-t
+    ties on shared edges)."""
+    got = torch.stack(rec).cpu().numpy()
+    want = torch.stack(ref).cpu().numpy()
+    same = (got == want).all(axis=0) & \
+        (counts == ref_counts).all(dim=0).cpu().numpy()
+    both = same[None, :] & np.isfinite(got) & np.isfinite(want)
+    err = float(np.abs(got[both] - want[both]).max()) if both.any() else 0.0
+    return {"ok": bool((~same).mean() <= 1e-4), "rays": int(len(same)),
+            "mismatch_share": float((~same).mean()),
+            "hit_share": float(np.isfinite(got[0]).mean()),
+            "max_abs_err": err}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -156,15 +190,17 @@ def main(argv=None) -> int:
         load_scene, pack_scene)
     from pathtracer_cuda_interactive_tpu_torch.models.subdivide import (
         subdivide_scene)
+    from pathtracer_cuda_interactive_tpu_torch.ops import brickkernel as bk
     from pathtracer_cuda_interactive_tpu_torch.ops import cuda_build
     from pathtracer_cuda_interactive_tpu_torch.ops import integrator
     from pathtracer_cuda_interactive_tpu_torch.ops import megakernel as mk
     from pathtracer_cuda_interactive_tpu_torch.ops import wavefront as wf
     from pathtracer_cuda_interactive_tpu_torch.ops.brickkernel import (
-        trace_bricks_plain)
+        trace_bricks_full_plain, trace_bricks_plain)
     from pathtracer_cuda_interactive_tpu_torch.ops.camera import (
         Camera, camera_ray_data)
-    from pathtracer_cuda_interactive_tpu_torch.render import offline
+    from pathtracer_cuda_interactive_tpu_torch.render import (
+        kernel_stats, offline)
     from pathtracer_cuda_interactive_tpu_torch.render.renderer import (
         ProgressiveRenderer)
     from pathtracer_cuda_interactive_tpu_torch.utils.config import (
@@ -181,16 +217,21 @@ def main(argv=None) -> int:
           f"device 0: {kind}")
     results["card"] = card
 
-    # -- 2 and 2b. the kernel builds: one nvcc per source, started together
+    # -- 2, 2b and 2c. the kernel builds: one nvcc per source, started
+    # together
     t0 = time.perf_counter()
-    built = cuda_build.build_all([mk.SOURCE, wf.SOURCE])
+    built = cuda_build.build_all([mk.SOURCE, wf.SOURCE, bk.SOURCE])
     mk.load_library()
     wf.load_library()
+    bk.load_library()
     build_s = time.perf_counter() - t0
     print(f"megakernel build {built[mk.SOURCE]:.2f} s, brick_trace build "
-          f"{built[wf.SOURCE]:.2f} s (in parallel); build+load {build_s:.2f} s")
+          f"{built[wf.SOURCE]:.2f} s, brick_render build "
+          f"{built[bk.SOURCE]:.2f} s (in parallel); build+load "
+          f"{build_s:.2f} s")
     results.update(build_s=build_s, megakernel_build_s=built[mk.SOURCE],
-                   brick_trace_build_s=built[wf.SOURCE])
+                   brick_trace_build_s=built[wf.SOURCE],
+                   brick_render_build_s=built[bk.SOURCE])
 
     # -- 3. kernel against its plain version on the card ------------------
     def load(name, width, height):
@@ -289,12 +330,62 @@ def main(argv=None) -> int:
                   f"{'ok' if res['ok'] else 'FAIL'}")
         return out
 
+    def compare_full(bricks, waves, label):
+        """3c: B3 and its counters against the plain version."""
+        out = []
+        for (org, dirn, tnear), name in zip(waves, ("primary", "bounce 1")):
+            rec, counts = wf.trace_bricks_full_cuda(bricks, *org, *dirn, tnear,
+                                                    collect_stats=True)
+            ref, ref_counts = trace_bricks_full_plain(bricks, org, dirn,
+                                                      tnear,
+                                                      collect_stats=True)
+            torch.cuda.synchronize()
+            res = record_check(rec, counts, ref, ref_counts)
+            res.update(scene=label, wave=name,
+                       counters=kernel_stats.counter_summary(counts))
+            out.append(res)
+            per_ray = ", ".join(
+                f"{k} {v['mean']:.2f} (max {v['max']:.0f})"
+                for k, v in res["counters"].items())
+            print(f"B3 vs plain {label} {name} wave: {res['rays']} rays, "
+                  f"hit share {res['hit_share']:.4f}, mismatch share "
+                  f"{res['mismatch_share']:.3e}, max abs err "
+                  f"{res['max_abs_err']:.3e} -> "
+                  f"{'ok' if res['ok'] else 'FAIL'}; per ray {per_ray}")
+        return out
+
+    def compare_render(bricks, cd, width, height, depth, check, label):
+        """3d: one B6 render against its plain version."""
+        got = bk.render_samples_bricks(bricks, cd, width, height, 0, SPP,
+                                       max_depth=depth)
+        ref = bk.render_tiles_bricks_plain(bricks, cd, width, height, 0,
+                                           bk.tile_grid(width, height), 0,
+                                           SPP, max_depth=depth)
+        torch.cuda.synchronize()
+        res = check(got.cpu().numpy(), ref.cpu().numpy())
+        res.update(scene=label, width=width, height=height, spp=SPP,
+                   depth=depth)
+        print(f"B6 vs plain {label} {width}x{height} depth {depth} "
+              f"({res['criterion']}): mismatch share "
+              f"{res['mismatch_share']:.3e}, max abs err "
+              f"{res['max_abs_err']:.3e}, mean abs err "
+              f"{res['mean_abs_err']:.3e} -> {'ok' if res['ok'] else 'FAIL'}")
+        return res
+
+    def require_agreement(kernel, checks):
+        failed = [c for c in checks if not c["ok"]]
+        if failed:
+            raise SystemExit(f"chip_smoke: kernel {kernel} disagrees with its "
+                             f"plain version: {failed}")
+
     blob_pack, blob_parsed = load_scene(str(SCENES_DIR / "blob_box.xml"))
     blob_cam = Camera.from_parsed(blob_parsed.camera)
     blob = BrickSet.from_pack(blob_pack).to(dev)
     cd = torch.from_numpy(camera_ray_data(blob_cam, MAIN_W, MAIN_H)).to(dev)
-    b2_checks = compare_waves(blob, capture_waves(blob, cd, MAIN_W, MAIN_H, 2),
-                              "blob_box")
+    blob_waves = capture_waves(blob, cd, MAIN_W, MAIN_H, 2)
+    b2_checks = compare_waves(blob, blob_waves, "blob_box")
+    b3_checks = compare_full(blob, blob_waves, "blob_box")
+    del blob_waves
     b2_renders = []
     cd = torch.from_numpy(camera_ray_data(blob_cam, SMALL_W, SMALL_H)).to(dev)
     for nee in (False, True):
@@ -315,15 +406,13 @@ def main(argv=None) -> int:
                   f"max abs err {res['max_abs_err']:.3e}, "
                   f"mean abs err {res['mean_abs_err']:.3e} "
                   f"-> {'ok' if res['ok'] else 'FAIL'}")
+    b6_checks = [compare_render(blob, cd, SMALL_W, SMALL_H, depth, check,
+                                "blob_box")
+                 for depth, check in ((4, wave_check), (12, deep_check))]
     del blob
-
-    def require_agreement(checks):
-        failed = [c for c in checks if not c["ok"]]
-        if failed:
-            raise SystemExit(f"chip_smoke: kernel B2 disagrees with its "
-                             f"plain version: {failed}")
-
-    require_agreement(b2_checks + b2_renders)
+    require_agreement("B2", b2_checks + b2_renders)
+    require_agreement("B3", b3_checks)
+    require_agreement("B6", b6_checks)
 
     # the large scene of the main path: blob_box subdivided three levels
     t0 = time.perf_counter()
@@ -349,36 +438,91 @@ def main(argv=None) -> int:
         raise SystemExit("chip_smoke: the captured primary wave is not the "
                          "main path's")
     b2_checks += compare_waves(big, big_waves, "blob_box x3")
-    require_agreement(b2_checks)
+    require_agreement("B2", b2_checks)
+    b3_checks += compare_full(big, big_waves, "blob_box x3")
+    require_agreement("B3", b3_checks)
     wave_ms = {}
     for (org, dirn, tnear), name in zip(big_waves, ("primary", "bounce 1")):
-        timings = {"kernel_ms": [], "plain_ms": []}
-        for which in ("plain", "kernel", "kernel", "plain"):
-            fn = ((lambda: wf.trace_bricks_cuda(big, *org, *dirn, tnear))
-                  if which == "kernel"
-                  else (lambda: trace_bricks_plain(big, org, dirn, tnear)))
-            timings[f"{which}_ms"].append(
-                cuda_ms(fn, 20 if which == "kernel" else 1))
-        wave_ms[name] = dict(
-            rays=int(org.x.numel()), timings=timings,
-            kernel_ms=statistics.median(timings["kernel_ms"]),
-            plain_ms=statistics.median(timings["plain_ms"]))
+        # B2 and its plain version in turns, B3 between, B3's plain once
+        runs = {"kernel": (lambda: wf.trace_bricks_cuda(big, *org, *dirn,
+                                                        tnear), 20),
+                "plain": (lambda: trace_bricks_plain(big, org, dirn, tnear),
+                          1),
+                "b3": (lambda: wf.trace_bricks_full_cuda(big, *org, *dirn,
+                                                         tnear), 20),
+                "b3_plain": (lambda: trace_bricks_full_plain(big, org, dirn,
+                                                             tnear), 1)}
+        timings = {f"{which}_ms": [] for which in runs}
+        for which in ("plain", "kernel", "b3", "b3", "kernel", "plain",
+                      "b3_plain"):
+            fn, repeats = runs[which]
+            timings[f"{which}_ms"].append(cuda_ms(fn, repeats))
+        wave_ms[name] = dict(rays=int(org.x.numel()), timings=timings,
+                             **{key: statistics.median(v)
+                                for key, v in timings.items()})
+        row = wave_ms[name]
         print(f"B2 timing blob_box x3 {MAIN_W}x{MAIN_H} {name} wave "
-              f"({org.x.numel()} rays): kernel "
-              f"{wave_ms[name]['kernel_ms']:.4f} ms {timings['kernel_ms']}, "
-              f"plain {wave_ms[name]['plain_ms']:.2f} ms "
+              f"({org.x.numel()} rays): kernel {row['kernel_ms']:.4f} ms "
+              f"{timings['kernel_ms']}, plain {row['plain_ms']:.2f} ms "
               f"{timings['plain_ms']}")
+        print(f"B3 timing blob_box x3 {MAIN_W}x{MAIN_H} {name} wave: kernel "
+              f"{row['b3_ms']:.4f} ms {timings['b3_ms']} (B2 "
+              f"{row['kernel_ms']:.4f} ms), plain {row['b3_plain_ms']:.2f} ms")
     del big_waves
+    b2_err = max(c["max_abs_err"] for c in b2_checks)
+    b3_err = max(c["max_abs_err"] for c in b3_checks)
+
+    # -- 3d. kernel B6 on the large scene: agreement at depth 4, and times
+    # at the main path's shape
+    b6_checks.append(compare_render(big, cd, MAIN_W, MAIN_H, 4, wave_check,
+                                    "blob_box x3"))
+    require_agreement("B6", b6_checks)
+    b6_err = b6_checks[-1]["max_abs_err"]
+    sample = [0]
+
+    def b6_frame():
+        sample[0] += SPP
+        bk.render_samples_bricks(big, cd, MAIN_W, MAIN_H, sample[0], SPP)
+
+    b6_timings = [cuda_ms(b6_frame, 5) for _ in range(3)]
+    b6_ms = statistics.median(b6_timings)
+    # the plain version costs tens of seconds: one run, by CUDA events
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    plain_img = bk.render_tiles_bricks_plain(
+        big, cd, MAIN_W, MAIN_H, 0, bk.tile_grid(MAIN_W, MAIN_H), 0, SPP)
+    stop.record()
+    stop.synchronize()
+    b6_plain_ms = start.elapsed_time(stop)
+    deep = deep_check(bk.render_samples_bricks(big, cd, MAIN_W, MAIN_H, 0,
+                                               SPP).cpu().numpy(),
+                      plain_img.cpu().numpy())
+    del plain_img
+    print(f"B6 timing blob_box x3 {MAIN_W}x{MAIN_H} {SPP} spp depth 50: "
+          f"kernel {b6_ms:.4f} ms {b6_timings}, plain {b6_plain_ms:.2f} ms "
+          f"(one run); kernel vs that plain render, reported only: "
+          f"mismatch share {deep['mismatch_share']:.3e}, mean abs err "
+          f"{deep['mean_abs_err']:.3e} (statistical criterion "
+          f"{'met' if deep['ok'] else 'not met'})")
     results.update(b2_waves=b2_checks, b2_renders=b2_renders,
-                   b2_wave_ms=wave_ms, large_scene_build_s=scene_build_s,
+                   b2_wave_ms=wave_ms, b3_waves=b3_checks,
+                   b6_checks=b6_checks, b6_ms=b6_ms, b6_timings=b6_timings,
+                   b6_plain_ms=b6_plain_ms, b6_depth50_vs_plain=deep,
+                   large_scene_build_s=scene_build_s,
                    large_scene_upload_s=upload_s,
                    large_scene_bytes=big.nbytes,
                    brick_data_bytes=big.brick_data.numel() * 4)
-    b2_err = max(c["max_abs_err"] for c in b2_checks)
+
+    counters = (mk.megakernel_cuda, wf.trace_bricks_cuda,
+                wf.trace_bricks_full_cuda, bk.render_bricks_cuda)
+
+    def zero_counts():
+        for wrapper in counters:
+            wrapper.launches = 0
 
     # -- 4. the main path ---------------------------------------------------
-    mk.megakernel_cuda.launches = 0
-    wf.trace_bricks_cuda.launches = 0
+    zero_counts()
     renderer = ProgressiveRenderer.from_xml(
         str(SCENES_DIR / "cbox_rect.xml"), width=MAIN_W, height=MAIN_H,
         device="cuda")
@@ -390,10 +534,11 @@ def main(argv=None) -> int:
         renderer.step(sync=True)
         frame_ms.append(renderer.frame_ms)
     launches = mk.megakernel_cuda.launches
-    if launches != warmup + frames or wf.trace_bricks_cuda.launches != 0:
+    others = [w.launches for w in counters[1:]]
+    if launches != warmup + frames or any(others):
         raise SystemExit(f"chip_smoke: {launches} kernel launches for "
-                         f"{warmup + frames} frames, "
-                         f"{wf.trace_bricks_cuda.launches} brick traces")
+                         f"{warmup + frames} frames, {others} launches of "
+                         f"B2, B3, B6")
     median_ms = statistics.median(frame_ms)
     # the highest percentile with ten frames beyond it
     tail_ms = sorted(frame_ms)[frames - 11]
@@ -440,8 +585,7 @@ def main(argv=None) -> int:
                                        RenderConfig(), device="cuda")
     if big_renderer.mode != "wavefront":
         raise SystemExit(f"chip_smoke: large scene took {big_renderer.mode}")
-    mk.megakernel_cuda.launches = 0
-    wf.trace_bricks_cuda.launches = 0
+    zero_counts()
     waves0 = big_renderer.waves
     warmup, big_frames = 2, 10
     for _ in range(warmup):
@@ -452,11 +596,11 @@ def main(argv=None) -> int:
         big_ms.append(big_renderer.frame_ms)
     b2_launches = wf.trace_bricks_cuda.launches
     waves = big_renderer.waves - waves0
-    if b2_launches != waves or waves < warmup + big_frames \
-            or mk.megakernel_cuda.launches != 0:
+    others = [w.launches for w in counters if w is not wf.trace_bricks_cuda]
+    if b2_launches != waves or waves < warmup + big_frames or any(others):
         raise SystemExit(f"chip_smoke: {b2_launches} B2 launches for {waves} "
-                         f"waves, {mk.megakernel_cuda.launches} megakernel "
-                         f"launches on the large scene")
+                         f"waves, {others} launches of B1, B3, B6 on the "
+                         f"large scene")
     big_median = statistics.median(big_ms)
     big_msamples = MAIN_W * MAIN_H * SPP / (big_median * 1e-3) / 1e6
     print(f"large main path {MAIN_W}x{MAIN_H} spf {SPP} depth 50: "
@@ -494,7 +638,80 @@ def main(argv=None) -> int:
                    large_avg_path_length=big_path_len,
                    b2_launches=b2_launches,
                    large_image_mean=float(big_img.mean()))
-    del big_renderer, big
+    del big_renderer
+
+    # -- 4c. the large scene's "bricks" path (kernel B6), same shape --------
+    bricks_config = RenderConfig(large_scene_mode="bricks")
+    bricks_renderer = ProgressiveRenderer(big, big_cam, MAIN_W, MAIN_H,
+                                          bricks_config, device="cuda")
+    if bricks_renderer.mode != "bricks":
+        raise SystemExit(f"chip_smoke: bricks mode took "
+                         f"{bricks_renderer.mode}")
+    zero_counts()
+    for _ in range(warmup):
+        bricks_renderer.step(sync=True)
+    bricks_ms = []
+    for _ in range(big_frames):
+        bricks_renderer.step(sync=True)
+        bricks_ms.append(bricks_renderer.frame_ms)
+    b6_launches = bk.render_bricks_cuda.launches
+    others = [w.launches for w in counters if w is not bk.render_bricks_cuda]
+    if b6_launches != warmup + big_frames or any(others) \
+            or bricks_renderer.waves != 0:
+        raise SystemExit(f"chip_smoke: {b6_launches} B6 launches for "
+                         f"{warmup + big_frames} frames, {others} launches "
+                         f"of B1, B2, B3 in bricks mode")
+    bricks_median = statistics.median(bricks_ms)
+    bricks_msamples = MAIN_W * MAIN_H * SPP / (bricks_median * 1e-3) / 1e6
+    print(f"bricks path {MAIN_W}x{MAIN_H} spf {SPP} depth 50: {big_frames} "
+          f"synced frames, median {bricks_median:.4f} ms, max "
+          f"{max(bricks_ms):.4f} ms (min {min(bricks_ms):.4f}), "
+          f"{bricks_msamples:.4f} Msamples/s; B6 launches {b6_launches}; "
+          f"beside the wavefront's median {big_median:.4f} ms in this call "
+          f"({big_median / bricks_median:.2f} times as long)")
+    bricks_img = bricks_renderer.hdr()
+    if not (bricks_img.shape == (MAIN_H, MAIN_W, 3)
+            and np.isfinite(bricks_img).all() and bricks_img.mean() > 0
+            and bricks_img.std() > 0):
+        raise SystemExit("chip_smoke: bricks-mode image is not finite and "
+                         "non-flat")
+    bricks_png = mk.BUILD_DIR / "chip_smoke_blob_box_x3_bricks.png"
+    bricks_renderer.save_png(str(bricks_png))
+    cam = bricks_renderer.camera
+    bricks_renderer.set_camera(Camera((0.2,) + tuple(cam.lookfrom[1:]),
+                                      cam.lookat, cam.up, cam.vfov))
+    if bricks_renderer.sample_count != 0:
+        raise SystemExit("chip_smoke: a camera move did not reset bricks "
+                         "mode")
+    bricks_renderer.step()
+    if bricks_renderer.sample_count != SPP \
+            or not np.isfinite(bricks_renderer.hdr()).all():
+        raise SystemExit("chip_smoke: bricks-mode step after the reset "
+                         "failed")
+    nee_mode = ProgressiveRenderer(
+        big, big_cam, MAIN_W, MAIN_H,
+        RenderConfig(large_scene_mode="bricks", enable_nee=True),
+        device="cuda").mode
+    if nee_mode != "wavefront":
+        raise SystemExit(f"chip_smoke: bricks mode with NEE took {nee_mode}")
+    results.update(bricks_frame_ms=bricks_ms,
+                   bricks_median_frame_ms=bricks_median,
+                   bricks_msamples_per_s=bricks_msamples,
+                   b6_launches=b6_launches,
+                   bricks_image_mean=float(bricks_img.mean()))
+    del bricks_renderer, big
+
+    # -- 4d. the kernel-stats entry point (kernel B3) ----------------------
+    zero_counts()
+    if kernel_stats.main(["--out", args.out] if args.out else []) != 0:
+        raise SystemExit("chip_smoke: kernel_stats failed")
+    b3_launches = wf.trace_bricks_full_cuda.launches
+    if b3_launches == 0 or mk.megakernel_cuda.launches \
+            or bk.render_bricks_cuda.launches:
+        raise SystemExit(f"chip_smoke: kernel_stats launched B3 "
+                         f"{b3_launches} times")
+    print(f"kernel_stats: B3 launches {b3_launches}")
+    results.update(b3_launches=b3_launches)
 
     # -- 5. the offline CLI on cuda -----------------------------------------
     cli_png = mk.BUILD_DIR / "chip_smoke_cli.png"
@@ -508,7 +725,7 @@ def main(argv=None) -> int:
     if args.out:
         out = Path(args.out)
         out.mkdir(parents=True, exist_ok=True)
-        for path in (png, big_png, cli_png):
+        for path in (png, big_png, bricks_png, cli_png):
             shutil.copy(path, out / path.name)
         (out / "chip_smoke_results.json").write_text(
             json.dumps(results, indent=1))
@@ -533,6 +750,27 @@ def main(argv=None) -> int:
         "max_abs_err": b2_err,
         "ms": wave_ms["bounce 1"]["kernel_ms"],
         "plain_ms": wave_ms["bounce 1"]["plain_ms"],
+    }, {
+        # launches: the kernel-stats entry point; times: the same wave as
+        # brick_trace's
+        "name": "brick_trace_full",
+        "route": "cuda",
+        "source": str(wf.SOURCE.resolve().relative_to(root)),
+        "replaces": "pathtracer_cuda_interactive_tpu/ops/wavefront.py:77",
+        "launches": b3_launches,
+        "max_abs_err": b3_err,
+        "ms": wave_ms["bounce 1"]["b3_ms"],
+        "plain_ms": wave_ms["bounce 1"]["b3_plain_ms"],
+    }, {
+        # times: one 640x480, 2-spp, depth-50 frame of the large scene
+        "name": "brick_render",
+        "route": "cuda",
+        "source": str(bk.SOURCE.resolve().relative_to(root)),
+        "replaces": "pathtracer_cuda_interactive_tpu/ops/brickkernel.py:559",
+        "launches": b6_launches,
+        "max_abs_err": b6_err,
+        "ms": b6_ms,
+        "plain_ms": b6_plain_ms,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

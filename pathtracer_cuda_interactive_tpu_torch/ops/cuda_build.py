@@ -2,8 +2,9 @@
 
 Each ``csrc/*.cu`` file has a plain C launch function and is compiled on
 its own for ``sm_90a`` into a shared library under ``_build/`` beside the
-package, named by a hash of its source and the flags, then loaded with
-``ctypes`` by its op module (ops/megakernel.py, ops/wavefront.py).  A
+package, named by a hash of its source, the shared ``csrc/*.cuh`` headers
+and the flags, then loaded with ``ctypes`` by its op module
+(ops/megakernel.py, ops/wavefront.py, ops/brickkernel.py).  A
 library that is already there is reused.  A missing ``nvcc`` or a failed
 build raises: there is no fallback.
 
@@ -45,10 +46,15 @@ def nvcc() -> str:
 
 
 def library_path(source: Path, build_dir: Path) -> Path:
-    """Where the library of ``source`` built with NVCC_FLAGS lives."""
-    key = hashlib.sha256(source.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return build_dir / f"{source.stem}_{key}.so"
+    """Where the library of ``source`` built with NVCC_FLAGS lives: named
+    by a hash of the source, of every header beside it (``*.cuh``, which
+    the sources include) and of the flags, so an edit to any of them
+    builds anew."""
+    digest = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return build_dir / f"{source.stem}_{digest.hexdigest()[:16]}.so"
 
 
 def build(source: Path, build_dir: Path = BUILD_DIR) -> Path:

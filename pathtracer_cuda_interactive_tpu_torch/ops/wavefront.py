@@ -29,7 +29,10 @@ renders are bit-reproducible on the card.
 ``trace_wave_slim`` dispatches on the device of the rays: CUDA tensors
 launch the hand-written kernel (``trace_bricks_cuda``, csrc/brick_trace.cu)
 and never fall back; CPU tensors run its plain version
-(ops/brickkernel.py::trace_bricks_plain).
+(ops/brickkernel.py::trace_bricks_plain).  ``trace_wave_full`` does the
+same for kernel B3 (``trace_bricks_full_cuda``, the same source), the
+16-channel record with optional per-ray traversal counters, which the
+JAX package's tools and the port's render/kernel_stats.py call.
 """
 
 from __future__ import annotations
@@ -42,9 +45,10 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from ..models.bricks import BRICK_PRIMS, BRICK_ROWS, STACK_DEPTH, BrickSet
+from ..models.bricks import BRICK_ROWS, STACK_DEPTH, BrickSet
 from . import brdf, cuda_build, rng
-from .brickkernel import trace_bricks_plain
+from .brickkernel import (slot_rows, tile_grid, trace_bricks_full_plain,
+                          trace_bricks_plain, triangle_record)
 from .camera import generate_primary_rays
 from .geometry import intersect_sphere
 from .integrator import MAX_DEPTH, RR_START_DEPTH, SECONDARY_TNEAR
@@ -83,12 +87,12 @@ def check_engine(trace: str) -> None:
     raise ValueError(f"unknown wavefront trace engine {trace!r}")
 
 
-# -- kernel B2 on the card -----------------------------------------------------
+# -- kernel B2 on the card (the library holds B3 too) -------------------------
 
 def build() -> Path:
-    """Compile csrc/brick_trace.cu into a shared library under BUILD_DIR
-    unless it is there; returns its path.  Raises if nvcc is missing or the
-    build fails."""
+    """Compile csrc/brick_trace.cu (kernels B2 and B3) into a shared
+    library under BUILD_DIR unless it is there; returns its path.  Raises
+    if nvcc is missing or the build fails."""
     return cuda_build.build(SOURCE, BUILD_DIR)
 
 
@@ -105,8 +109,46 @@ def load_library() -> ctypes.CDLL:
                        ptr, ptr,                       # out_t, out_slot
                        ptr]                            # stream
         fn.restype = ctypes.c_int
+        fn = lib.pt_brick_trace_full_launch
+        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr,   # ox oy oz dx dy dz
+                       i32, ctypes.c_float, ptr,       # n, tnear, active
+                       ptr, i32,                       # sph_rows, S
+                       ptr, ptr, ptr,                  # boxes, links, bricks
+                       ptr, ptr,                       # out, stats
+                       ptr]                            # stream
+        fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def _check_wave(bricks: BrickSet, rays, name: str) -> int:
+    """Check a wave's ray components (contiguous float32 [N] tensors on one
+    card) and the brick set against what the brick kernels take; returns
+    N."""
+    if bricks.top_depth + 2 > STACK_DEPTH:
+        raise ValueError(f"top tree of depth {bricks.top_depth} is too deep "
+                         f"for the kernel's stack of {STACK_DEPTH} slots")
+    device = rays[0].device
+    if device.type != "cuda":
+        raise ValueError(f"{name} needs CUDA tensors, got {device}")
+    n = int(rays[0].numel())
+    for label, t in zip(("ox", "oy", "oz", "dx", "dy", "dz"), rays):
+        if (t.device != device or t.dtype != torch.float32 or t.ndim != 1
+                or t.numel() != n or not t.is_contiguous()):
+            raise ValueError(f"{label}: need a contiguous float32 [{n}] "
+                             f"tensor on {device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    for label, t, dtype in (("brick_data", bricks.brick_data, torch.float32),
+                            ("top_boxes", bricks.top_boxes, torch.float32),
+                            ("top_links", bricks.top_links, torch.int32),
+                            ("sph_rows", bricks.sph_rows, torch.float32)):
+        if t.device != device or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"bricks.{label}: need a contiguous {dtype} "
+                             f"tensor on {device}, got {t.dtype} on "
+                             f"{t.device}")
+    if tuple(bricks.brick_data.shape[1:]) != (BRICK_ROWS, 128):
+        raise ValueError("bricks.brick_data: need [B, 136, 128]")
+    return n
 
 
 def trace_bricks_cuda(bricks: BrickSet, ox: torch.Tensor, oy: torch.Tensor,
@@ -117,29 +159,8 @@ def trace_bricks_cuda(bricks: BrickSet, ox: torch.Tensor, oy: torch.Tensor,
     Returns fresh (t [N] f32, inf on a miss; slot [N] i32, -1 on a miss).
     Adds one to ``trace_bricks_cuda.launches`` per launch; an empty wave
     launches nothing."""
-    if bricks.top_depth + 2 > STACK_DEPTH:
-        raise ValueError(f"top tree of depth {bricks.top_depth} is too deep "
-                         f"for the kernel's stack of {STACK_DEPTH} slots")
+    n = _check_wave(bricks, (ox, oy, oz, dx, dy, dz), "trace_bricks_cuda")
     device = ox.device
-    if device.type != "cuda":
-        raise ValueError(f"trace_bricks_cuda needs CUDA tensors, got {device}")
-    n = int(ox.numel())
-    for name, t in (("ox", ox), ("oy", oy), ("oz", oz), ("dx", dx),
-                    ("dy", dy), ("dz", dz)):
-        if (t.device != device or t.dtype != torch.float32 or t.ndim != 1
-                or t.numel() != n or not t.is_contiguous()):
-            raise ValueError(f"{name}: need a contiguous float32 [{n}] "
-                             f"tensor on {device}, got {t.dtype} "
-                             f"{tuple(t.shape)} on {t.device}")
-    for name, t, dtype in (("brick_data", bricks.brick_data, torch.float32),
-                           ("top_boxes", bricks.top_boxes, torch.float32),
-                           ("top_links", bricks.top_links, torch.int32)):
-        if t.device != device or t.dtype != dtype or not t.is_contiguous():
-            raise ValueError(f"bricks.{name}: need a contiguous {dtype} "
-                             f"tensor on {device}, got {t.dtype} on "
-                             f"{t.device}")
-    if tuple(bricks.brick_data.shape[1:]) != (BRICK_ROWS, 128):
-        raise ValueError("bricks.brick_data: need [B, 136, 128]")
     out_t = torch.empty(n, dtype=torch.float32, device=device)
     out_slot = torch.empty(n, dtype=torch.int32, device=device)
     if n == 0:
@@ -175,13 +196,79 @@ def trace_wave_slim(bricks: BrickSet, org: Vec3, dirn: Vec3, tnear: float):
     return trace_bricks_cuda(bricks, *org, *dirn, tnear)
 
 
+# -- kernel B3 on the card -----------------------------------------------------
+
+def trace_bricks_full_cuda(bricks: BrickSet, ox: torch.Tensor,
+                           oy: torch.Tensor, oz: torch.Tensor,
+                           dx: torch.Tensor, dy: torch.Tensor,
+                           dz: torch.Tensor, tnear: float, active=None,
+                           collect_stats: bool = False):
+    """Launch kernel B3 on the current stream: the 16-channel closest hit
+    (resident spheres first, then the bricks) of each of the N rays given
+    as contiguous float32 [N] CUDA tensors; ``active``, a bool [N] tensor or
+    None, leaves the rays where it is False untraced (a miss).  Returns
+    (record, counts): the record a tuple of 16 fresh [N] f32 views of one
+    [16, N] buffer (t is inf and the rest 0 on a miss), counts a fresh
+    int32 [3, N] of nodes popped, bricks entered and chunk gates passed
+    per ray with ``collect_stats``, else None.  Adds one to
+    ``trace_bricks_full_cuda.launches`` per launch; an empty wave launches
+    nothing."""
+    n = _check_wave(bricks, (ox, oy, oz, dx, dy, dz),
+                    "trace_bricks_full_cuda")
+    device = ox.device
+    if active is not None and (active.device != device
+                               or active.dtype != torch.bool
+                               or active.numel() != n
+                               or not active.is_contiguous()):
+        raise ValueError(f"active: need a contiguous bool [{n}] tensor on "
+                         f"{device}")
+    out = torch.empty((16, n), dtype=torch.float32, device=device)
+    counts = (torch.empty((3, n), dtype=torch.int32, device=device)
+              if collect_stats else None)
+    if n:
+        lib = load_library()
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            err = lib.pt_brick_trace_full_launch(
+                ox.data_ptr(), oy.data_ptr(), oz.data_ptr(), dx.data_ptr(),
+                dy.data_ptr(), dz.data_ptr(), n, float(tnear),
+                active.data_ptr() if active is not None else None,
+                bricks.sph_rows.data_ptr(), bricks.num_spheres,
+                bricks.top_boxes.data_ptr(), bricks.top_links.data_ptr(),
+                bricks.brick_data.data_ptr(), out.data_ptr(),
+                counts.data_ptr() if collect_stats else None, stream)
+        if err != 0:
+            raise RuntimeError(f"brick_trace_full launch failed: CUDA error "
+                               f"{err}")
+        trace_bricks_full_cuda.launches += 1
+    return tuple(out.unbind(0)), counts
+
+
+trace_bricks_full_cuda.launches = 0
+
+
+def trace_wave_full(bricks: BrickSet, org: Vec3, dirn: Vec3, tnear: float,
+                    active=None, collect_stats: bool = False):
+    """The 16-channel closest hit of one wave of rays ([N] components): the
+    JAX package's _trace_wave.  Returns the record (a tuple of 16 [N] f32
+    tensors), and with ``collect_stats`` (record, counts), counts the int32
+    [3, N] per-ray nodes popped, bricks entered and chunk gates passed.
+    CUDA tensors launch kernel B3; CPU tensors run its plain version
+    (ops/brickkernel.py::trace_bricks_full_plain)."""
+    device = org.x.device
+    if bricks.device != device:
+        raise ValueError(f"bricks on {bricks.device}, rays on {device}")
+    if device.type == "cpu":
+        return trace_bricks_full_plain(bricks, org, dirn, tnear, active,
+                                       collect_stats)
+    if device.type != "cuda":
+        raise ValueError(f"no brick trace for device {device}")
+    record, counts = trace_bricks_full_cuda(bricks, *org, *dirn, tnear,
+                                            active, collect_stats)
+    return (record, counts) if collect_stats else record
+
+
 # -- ray layout and sort keys --------------------------------------------------
-
-def tile_grid(width: int, height: int, tile) -> int:
-    """Number of screen tiles covering the image (JAX ops/megakernel.py)."""
-    tw, th = tile
-    return (-(-width // tw)) * (-(-height // th))
-
 
 def _wave_layout(width: int, height: int):
     """Static slot -> pixel map: each [WAVE_ROWS, 128] packet covers one
@@ -286,10 +373,7 @@ def _record_from_slots(bricks: BrickSet, t, slot, org: Vec3, dirn: Vec3,
     B2's (t, slot): one 32-float gather per ray of the winning triangle's
     record, a Moller-Trumbore re-solve for (u, v), then the resident
     spheres.  Every ray of the table is live, so there is no active mask."""
-    flat = bricks.brick_data.reshape(-1)
-    s = torch.clamp_min(slot, 0).to(torch.int64)
-    base = (s // BRICK_PRIMS) * (BRICK_ROWS * 128) + (s % BRICK_PRIMS) * 32
-    rows = flat[base[:, None] + torch.arange(32, device=flat.device)]
+    rows = slot_rows(bricks, slot)
     gv = lambda j: Vec3(rows[:, j], rows[:, j + 1], rows[:, j + 2])
     p0, e1, e2 = gv(1), gv(4), gv(7)
     pv = cross(dirn, e2)
@@ -299,21 +383,7 @@ def _record_from_slots(bricks: BrickSet, t, slot, org: Vec3, dirn: Vec3,
     u = dot(tvec, pv) / det_s
     qv = cross(tvec, e1)
     v = dot(dirn, qv) / det_s
-
-    w = 1.0 - u - v
-    pos = Vec3(p0.x + e1.x * u + e2.x * v,
-               p0.y + e1.y * u + e2.y * v,
-               p0.z + e1.z * u + e2.z * v)
-    n0, n1, n2 = gv(10), gv(13), gv(16)
-    ni = Vec3(n0.x * w + n1.x * u + n2.x * v,
-              n0.y * w + n1.y * u + n2.y * v,
-              n0.z * w + n1.z * u + n2.z * v)
-    ng = cross(e1, e2)
-    smooth = rows[:, 28] > 0.5
-    ns = where(smooth, ni, ng)
-    mt, mp = rows[:, 19], rows[:, 23]
-    alb, em = gv(20), gv(24)
-    emit = rows[:, 27]
+    ns, pos, mt, alb, mp, em, emit = triangle_record(rows, u, v)
     t = torch.where(slot >= 0, t, INF)
 
     sph = bricks.sph_rows

@@ -7,14 +7,16 @@ C26/C27 in SURVEY.md): keep a running radiance sum in a device buffer, add
 display, and zero everything when the camera (or the spf setting) changes —
 camera compare with epsilon 1e-5 (main.cu:297-312).
 
-``_render_mode`` picks one of three compute paths, as the JAX package's
+``_render_mode`` picks one of four compute paths, as the JAX package's
 does: the megakernel (ops/megakernel.py) for scenes of at most
-``MEGAKERNEL_MAX_PRIMS`` primitives, the sorted wavefront
-(ops/wavefront.py, kernel B2) for larger scenes with triangles, and the
-plain integrator (ops/integrator.py, the JAX package's "xla" mode) for the
-rest, which are large sphere-only scenes.  On a card the first two launch
-their CUDA kernels; on the CPU they run the kernels' plain versions.  The
-JAX package's executable cache (utils/aotcache.py) has no counterpart: it
+``MEGAKERNEL_MAX_PRIMS`` primitives; for larger scenes with triangles the
+sorted wavefront (ops/wavefront.py, kernel B2) or, with
+``large_scene_mode="bricks"``, the persistent brick render
+(ops/brickkernel.py, kernel B6); and the plain integrator
+(ops/integrator.py, the JAX package's "xla" mode) for the rest, which are
+large sphere-only scenes.  On a card the first three launch their CUDA
+kernels; on the CPU they run the kernels' plain versions.  The JAX
+package's executable cache (utils/aotcache.py) has no counterpart: it
 worked around a TPU-backend recompile, and the kernels here are built once
 per source hash into the package's _build/ directory.
 """
@@ -31,6 +33,7 @@ from ..models.bricks import BrickSet
 from ..models.device_scene import DeviceScene
 from ..models.scenepack import load_scene
 from ..ops import integrator
+from ..ops.brickkernel import render_samples_bricks
 from ..ops.camera import Camera, camera_ray_data
 from ..ops.megakernel import MEGAKERNEL_MAX_PRIMS, render_samples_megakernel
 from ..ops.wavefront import check_engine, render_samples_wavefront
@@ -40,27 +43,28 @@ from ..utils.config import RenderConfig
 
 def _render_mode(scene, large_scene_mode: str = "wavefront") -> str:
     """The compute path for a scene (a ScenePack, or a prebuilt BrickSet,
-    which pins the wavefront):
+    which pins the large-scene path):
       * "megakernel" — at most MEGAKERNEL_MAX_PRIMS primitives;
       * "wavefront"  — larger scenes with triangles and at most
-                       MEGAKERNEL_MAX_PRIMS spheres (the sorted wavefront);
+                       MEGAKERNEL_MAX_PRIMS spheres, the sorted wavefront;
+      * "bricks"     — the same scenes with ``large_scene_mode="bricks"``,
+                       the persistent brick render;
       * "plain"      — the rest (large sphere-only scenes): the plain
                        integrator with the BVH walk, the JAX package's "xla".
-    ``large_scene_mode`` picks the large-scene path; only "wavefront" is
-    ported, the JAX package's retired experiments raise."""
-    large = (isinstance(scene, BrickSet)
-             or (scene.num_prims > MEGAKERNEL_MAX_PRIMS
-                 and scene.num_triangles > 0
-                 and scene.num_spheres <= MEGAKERNEL_MAX_PRIMS))
-    if large:
-        if large_scene_mode == "wavefront":
-            return "wavefront"
-        if large_scene_mode in ("bricks", "mx", "mx2"):
-            item = "A9" if large_scene_mode == "bricks" else "A10"
+    The JAX package's retired experiments "mx" and "mx2" are not ported:
+    on a ScenePack they raise; a prebuilt BrickSet takes the wavefront for
+    them, as in the JAX package."""
+    if large_scene_mode not in ("wavefront", "bricks", "mx", "mx2"):
+        raise ValueError(f"unknown large_scene_mode {large_scene_mode!r}")
+    if isinstance(scene, BrickSet):
+        return "bricks" if large_scene_mode == "bricks" else "wavefront"
+    if (scene.num_prims > MEGAKERNEL_MAX_PRIMS and scene.num_triangles > 0
+            and scene.num_spheres <= MEGAKERNEL_MAX_PRIMS):
+        if large_scene_mode in ("mx", "mx2"):
             raise NotImplementedError(
                 f"large_scene_mode {large_scene_mode!r} is not ported "
-                f"(ROADMAP {item}); the port runs 'wavefront'")
-        raise ValueError(f"unknown large_scene_mode {large_scene_mode!r}")
+                "(ROADMAP A10); the port runs 'wavefront' and 'bricks'")
+        return large_scene_mode
     if scene.num_prims <= MEGAKERNEL_MAX_PRIMS:
         return "megakernel"
     return "plain"
@@ -73,13 +77,18 @@ class ProgressiveRenderer:
     ``accum`` is a [H, W, 3] float32 tensor on ``device``, updated in place
     (``accum += new``) each step — the analog of the reference's persistent
     ``accumulationBuffer`` (main.cu:213-218).  ``scene`` is a ScenePack or
-    a prebuilt BrickSet; ``mode`` is the compute path (``_render_mode``) and
-    ``waves`` counts the wavefront waves traced so far."""
+    a prebuilt BrickSet; ``mode`` is the compute path (``_render_mode``;
+    "bricks" with ``enable_nee`` takes "wavefront") and ``waves`` counts
+    the wavefront waves traced so far."""
 
     def __init__(self, scene, camera: Camera, width: int,
                  height: int, config: RenderConfig = RenderConfig(),
                  device="cuda"):
         self.mode = _render_mode(scene, config.large_scene_mode)
+        if config.enable_nee and self.mode == "bricks":
+            # the persistent brick render has no NEE hook; the sorted
+            # wavefront (same BrickSet) has
+            self.mode = "wavefront"
         if self.mode == "wavefront":
             check_engine(config.wavefront_trace)
         self.device = torch.device(device)
@@ -89,7 +98,7 @@ class ProgressiveRenderer:
                                "is not available")
         if isinstance(scene, BrickSet):
             self.scene = scene.to(self.device)
-        elif self.mode == "wavefront":
+        elif self.mode in ("wavefront", "bricks"):
             self.scene = BrickSet.from_pack(scene).to(self.device)
         else:
             self.scene = DeviceScene.from_pack(scene).to(self.device)
@@ -171,6 +180,11 @@ class ProgressiveRenderer:
                 cfg.rr_start_depth, nee=cfg.enable_nee,
                 trace=cfg.wavefront_trace, stats=stats)
             self.waves += stats.get("waves", 0)
+        elif self.mode == "bricks":
+            new = render_samples_bricks(
+                self.scene, self._cam_data, self.width, self.height,
+                self.sample_count, ns, cfg.seed, cfg.max_depth,
+                cfg.rr_start_depth)
         else:
             new = integrator.render_samples(
                 self.scene, self._cam_data, self.width, self.height,

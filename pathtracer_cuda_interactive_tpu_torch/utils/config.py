@@ -9,7 +9,7 @@ Here they live in one dataclass.  Fields of the JAX package's config that
 nothing in the port reads yet return with their slices: the viewer's
 (``fov_*``, ``move_speed``, ``mouse_sensitivity``); its ``setup_jax`` has
 no counterpart.  The large-scene fields keep the JAX defaults; of their
-values the port runs ``large_scene_mode="wavefront"`` and
+values the port runs ``large_scene_mode`` "wavefront" and "bricks" and
 ``wavefront_trace="slim"``, and the others raise NotImplementedError
 (render/renderer.py, ops/wavefront.py::check_engine).  The JAX package's
 ``wavefront_compact_tail`` and ``wavefront_tail_trace`` shaped its
@@ -39,8 +39,10 @@ class RenderConfig:
     # parses point lights but never samples them (SURVEY.md §3.5)
     enable_nee: bool = False
     # large-triangle-scene compute path: "wavefront", the sorted wavefront
-    # (ops/wavefront.py).  The JAX package's retired experiments ("bricks",
-    # "mx", "mx2") are not ported (ROADMAP A9, A10).
+    # (ops/wavefront.py, kernel B2), or "bricks", the persistent brick
+    # render (ops/brickkernel.py, kernel B6; with enable_nee the renderer
+    # takes "wavefront", since B6 has no NEE).  The JAX package's retired
+    # experiments "mx" and "mx2" are not ported (ROADMAP A10).
     large_scene_mode: str = "wavefront"
     # per-wave closest-hit engine of the wavefront: "slim", kernel B2
     # (csrc/brick_trace.cu).  "slim[N]", "slimg[N]", "slim2" and "pairs[N]"

@@ -71,8 +71,28 @@ def test_library_name_follows_the_source(tmp_path):
     assert first.name.startswith("k_") and first.suffix == ".so"
 
 
+def test_library_name_follows_the_headers(tmp_path):
+    """A source includes the shared csrc/*.cuh headers, so an edit to any of
+    them must build a new library, not load a stale one."""
+    src = tmp_path / "k.cu"
+    src.write_text('#include "walk.cuh"\n')
+    header = tmp_path / "walk.cuh"
+    header.write_text("// a\n")
+    first = cuda_build.library_path(src, tmp_path)
+    header.write_text("// b\n")
+    second = cuda_build.library_path(src, tmp_path)
+    assert second != first
+    (tmp_path / "other.cuh").write_text("// c\n")
+    assert cuda_build.library_path(src, tmp_path) != second
+    # the package's own sources depend on their headers
+    lib = cuda_build.library_path(wavefront.SOURCE, tmp_path)
+    assert lib == cuda_build.library_path(wavefront.SOURCE, tmp_path)
+    assert lib.name.startswith("brick_trace_")
+
+
 def test_kernel_stack_is_the_builders_bound():
-    src = wavefront.SOURCE.read_text()
+    # the walk of kernels B2, B3 and B6 lives in the shared header
+    src = (cuda_build.CSRC_DIR / "brick_walk.cuh").read_text()
     assert re.search(r"constexpr int kStack = (\d+);", src).group(1) == \
         str(STACK_DEPTH)
     bricks, _ = _load(8, 8)

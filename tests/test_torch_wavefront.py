@@ -308,8 +308,7 @@ def test_unported_engines_raise(blob, engine):
                                      width=W, height=H, device="cpu")
 
 
-@pytest.mark.parametrize("mode,item", [("bricks", "A9"), ("mx", "A10"),
-                                       ("mx2", "A10")])
+@pytest.mark.parametrize("mode,item", [("mx", "A10"), ("mx2", "A10")])
 def test_unported_large_scene_modes_raise(mode, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         ProgressiveRenderer.from_xml(
