@@ -13,6 +13,9 @@ JAX, and fails with a non-zero exit code if any phase fails:
    at the same time as the megakernel's, with its time and ptxas report;
 2c. the brick-render build (csrc/brick_render.cu, kernel B6), in the same
    parallel build;
+2d. the builds of csrc/brick_trace_slim2.cu (kernel B4) and
+   csrc/pair_trace.cu (kernel B5), in the same parallel build, with their
+   times and ptxas reports;
 3. the megakernel against its plain torch version on the card, on the
    in-repo sphere, Cornell-box and point-light scenes at 160x120 and on the
    Cornell box at the main path's 640x480, each at depth 4 (shallow
@@ -33,6 +36,16 @@ JAX, and fails with a non-zero exit code if any phase fails:
    depth 4 (shallow criterion) and 12 (statistical), and the large scene at
    640x480, 2 samples, depth 4; B6 timed at the main path's shape (640x480,
    2 samples, depth 50) by CUDA events, its plain version once;
+3e. kernel B4 (the slim walk with the deferred leaf, engine "slim2") on
+   the four waves of 3b: t and slot equal to its plain version and to
+   kernel B2 bit for bit; whole wavefront renders at 160x120 with
+   trace="slim2", depth 4 (shallow) and 12 (statistical), NEE off and on;
+   B4, B2 (in turns) and plain B4 timed on the large scene's waves;
+3f. kernel B5 (the pair lists, engines "pairs" and "pairs8") likewise:
+   against its plain version t and slot equal on all but 1e-4 of the rays,
+   against B2 t bit for bit on every ray and slot on all but 1e-4; the
+   renders; timed, with the pairs per packet, and the cull and sort (torch
+   ops) timed apart from the kernel;
 4. the small-scene main path: ProgressiveRenderer on the rect Cornell box
    at 640x480, 2 samples per frame, depth 50, on cuda — 30 synced frames
    after warmup, the launch counters, the camera and samples-per-frame
@@ -50,10 +63,18 @@ JAX, and fails with a non-zero exit code if any phase fails:
 4d. the kernel-stats entry point (render/kernel_stats.py): B3's per-ray
    counters and B3 against B2 on the large scene's waves, with B3's
    launches counted;
+4e, 4f. the large scene through ProgressiveRenderer with
+   RenderConfig(wavefront_trace="slim2") and then "pairs", same shape —
+   10 synced frames after warmup, B4's (B5's) launches against the waves
+   traced and no B2 launch, a camera reset, a finite non-flat image that
+   meets the statistical criterion against 4b's at the same frame count, a
+   PNG, the median frame beside 4b's;
 5. the offline CLI on cuda.
 
-Its last two lines are a JSON object describing each kernel and then
-{"ok": true, "device": {...}}.  ``--out DIR`` also writes the PNGs and a
+Its last two lines are a JSON object describing each kernel (with its
+bound: the larger of the bytes the function must move over the card's
+memory rate and the operations this run's data need over its FP32 rate)
+and then {"ok": true, "device": {...}}.  ``--out DIR`` also writes the PNGs and a
 results JSON into DIR.
 """
 
@@ -74,6 +95,26 @@ import torch
 MAIN_W, MAIN_H = 640, 480
 SMALL_W, SMALL_H = 160, 120
 SPP = 2
+# Published peaks of one NVIDIA H100 SXM at a 700 W power limit: float32
+# outside the tensor cores, and HBM3.
+PEAK_FP32_OPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+# float32 operations of one slab test (6 subtractions, 6 products, 12
+# min/max, 2 comparisons) and of one Moller-Trumbore test (two cross
+# products, four dot products, a reciprocal, a subtraction, three scalings
+# and the range checks), as csrc/brick_walk.cuh and csrc/pt_common.cuh do
+# them; a bounce's shading is small beside its walk and is not counted.
+BOX_OPS = 26
+TRI_OPS = 52
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over the FP32 rate, in ms."""
+    by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    by_ops = ops / PEAK_FP32_OPS * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
 def card_line() -> str:
@@ -194,9 +235,11 @@ def main(argv=None) -> int:
     from pathtracer_cuda_interactive_tpu_torch.ops import cuda_build
     from pathtracer_cuda_interactive_tpu_torch.ops import integrator
     from pathtracer_cuda_interactive_tpu_torch.ops import megakernel as mk
+    from pathtracer_cuda_interactive_tpu_torch.ops import pairtrace as pt
     from pathtracer_cuda_interactive_tpu_torch.ops import wavefront as wf
     from pathtracer_cuda_interactive_tpu_torch.ops.brickkernel import (
-        trace_bricks_full_plain, trace_bricks_plain)
+        trace_bricks_full_plain, trace_bricks_pipelined_plain,
+        trace_bricks_plain)
     from pathtracer_cuda_interactive_tpu_torch.ops.camera import (
         Camera, camera_ray_data)
     from pathtracer_cuda_interactive_tpu_torch.render import (
@@ -217,21 +260,28 @@ def main(argv=None) -> int:
           f"device 0: {kind}")
     results["card"] = card
 
-    # -- 2, 2b and 2c. the kernel builds: one nvcc per source, started
+    # -- 2, 2b, 2c and 2d. the kernel builds: one nvcc per source, started
     # together
     t0 = time.perf_counter()
-    built = cuda_build.build_all([mk.SOURCE, wf.SOURCE, bk.SOURCE])
+    built = cuda_build.build_all([mk.SOURCE, wf.SOURCE, bk.SOURCE,
+                                  wf.SLIM2_SOURCE, pt.SOURCE])
     mk.load_library()
     wf.load_library()
     bk.load_library()
+    wf.load_slim2_library()
+    pt.load_library()
     build_s = time.perf_counter() - t0
     print(f"megakernel build {built[mk.SOURCE]:.2f} s, brick_trace build "
           f"{built[wf.SOURCE]:.2f} s, brick_render build "
-          f"{built[bk.SOURCE]:.2f} s (in parallel); build+load "
+          f"{built[bk.SOURCE]:.2f} s, brick_trace_slim2 build "
+          f"{built[wf.SLIM2_SOURCE]:.2f} s, pair_trace build "
+          f"{built[pt.SOURCE]:.2f} s (in parallel); build+load "
           f"{build_s:.2f} s")
     results.update(build_s=build_s, megakernel_build_s=built[mk.SOURCE],
                    brick_trace_build_s=built[wf.SOURCE],
-                   brick_render_build_s=built[bk.SOURCE])
+                   brick_render_build_s=built[bk.SOURCE],
+                   brick_trace_slim2_build_s=built[wf.SLIM2_SOURCE],
+                   pair_trace_build_s=built[pt.SOURCE])
 
     # -- 3. kernel against its plain version on the card ------------------
     def load(name, width, height):
@@ -297,6 +347,11 @@ def main(argv=None) -> int:
           f"{timings['plain_ms']}; avg path length {path_len:.4f} rays/sample")
     results.update(kernel_ms=kernel_ms, plain_ms=plain_ms, timings=timings,
                    avg_path_length=path_len)
+    # B1 tests every ray of the frame against every primitive; it reads the
+    # primitive table and the camera and writes the image
+    b1_bound = bound(
+        scene.num_prims * 128 + cd.numel() * 4 + MAIN_W * MAIN_H * 12,
+        float(rays) * scene.num_prims * TRI_OPS)
     del scene, cd
 
     # -- 3b. kernel B2 against its plain version on the card ---------------
@@ -378,6 +433,84 @@ def main(argv=None) -> int:
             raise SystemExit(f"chip_smoke: kernel {kernel} disagrees with its "
                              f"plain version: {failed}")
 
+    def plain_engine(engine):
+        """The plain version of a wavefront engine's per-wave trace."""
+        if engine == "slim2":
+            return trace_bricks_pipelined_plain
+        rows = wf.parse_engine(engine)[1]
+
+        def plain_pairs(b, org, dirn, tnear):
+            brk, ent, cnt = pt.visit_lists(b, org, dirn, tnear, rows)
+            return pt.trace_pairs_plain(b, org, dirn, tnear, brk, ent, cnt,
+                                        rows * pt.LANES)
+        return plain_pairs
+
+    def compare_engine(bricks, waves, label, engine):
+        """3e, 3f: an engine's kernel on each wave against its plain version
+        and against kernel B2.  "slim2" must equal both bit for bit;
+        "pairs[N]" must give B2's t on every ray, and B2's and its plain
+        version's slot on all but 1e-4 of the rays (equal-t ties)."""
+        kernel, plain = wf.engine_tracer(engine), plain_engine(engine)
+        limit = 0.0 if engine == "slim2" else 1e-4
+        out = []
+        for (org, dirn, tnear), name in zip(waves, ("primary", "bounce 1")):
+            t, slot = kernel(bricks, org, dirn, tnear)
+            b2_t, b2_slot = wf.trace_bricks_cuda(bricks, *org, *dirn, tnear)
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            ref_t, ref_slot = plain(bricks, org, dirn, tnear)
+            stop.record()
+            stop.synchronize()
+            vs_plain = float(((t != ref_t) | (slot != ref_slot)).float().mean())
+            t_differs = int((t != b2_t).sum())
+            vs_b2 = float((slot != b2_slot).float().mean())
+            both = torch.isfinite(t) & torch.isfinite(ref_t)
+            err = float((t[both] - ref_t[both]).abs().max()) if both.any() \
+                else 0.0
+            res = {"ok": vs_plain <= limit and t_differs == 0
+                   and vs_b2 <= limit, "engine": engine, "scene": label,
+                   "wave": name, "rays": int(t.numel()),
+                   "mismatch_share": vs_plain, "t_differs_from_b2": t_differs,
+                   "slot_mismatch_share_vs_b2": vs_b2, "max_abs_err": err,
+                   "plain_ms": start.elapsed_time(stop)}
+            out.append(res)
+            print(f"{engine} vs plain {label} {name} wave: {res['rays']} "
+                  f"rays, mismatch share {vs_plain:.3e}, max abs err "
+                  f"{err:.3e}; vs B2: t differs on {t_differs} rays, slot "
+                  f"mismatch share {vs_b2:.3e} -> "
+                  f"{'ok' if res['ok'] else 'FAIL'}")
+        return out
+
+    def engine_renders(bricks, cd, engine):
+        """3e, 3f: whole wavefront renders through an engine's kernel
+        against the same renders through its plain version."""
+        out = []
+        for nee in (False, True):
+            for depth, check in ((4, wave_check), (12, deep_check)):
+                got = wf.render_samples_wavefront(
+                    bricks, cd, SMALL_W, SMALL_H, 0, SPP, max_depth=depth,
+                    nee=nee, trace=engine)
+                ref = wf.render_samples_wavefront(
+                    bricks, cd, SMALL_W, SMALL_H, 0, SPP, max_depth=depth,
+                    nee=nee, tracer=plain_engine(engine))
+                torch.cuda.synchronize()
+                res = check(got.cpu().numpy(), ref.cpu().numpy())
+                res.update(engine=engine, scene="blob_box", nee=nee,
+                           width=SMALL_W, height=SMALL_H, spp=SPP,
+                           depth=depth)
+                out.append(res)
+                print(f"wavefront {engine} vs plain blob_box nee={nee} "
+                      f"{SMALL_W}x{SMALL_H} depth {depth} "
+                      f"({res['criterion']}): mismatch share "
+                      f"{res['mismatch_share']:.3e}, max abs err "
+                      f"{res['max_abs_err']:.3e}, mean abs err "
+                      f"{res['mean_abs_err']:.3e} "
+                      f"-> {'ok' if res['ok'] else 'FAIL'}")
+        return out
+
+    ENGINES = ("slim2", "pairs", "pairs8")
+
     blob_pack, blob_parsed = load_scene(str(SCENES_DIR / "blob_box.xml"))
     blob_cam = Camera.from_parsed(blob_parsed.camera)
     blob = BrickSet.from_pack(blob_pack).to(dev)
@@ -385,6 +518,8 @@ def main(argv=None) -> int:
     blob_waves = capture_waves(blob, cd, MAIN_W, MAIN_H, 2)
     b2_checks = compare_waves(blob, blob_waves, "blob_box")
     b3_checks = compare_full(blob, blob_waves, "blob_box")
+    engine_checks = {engine: compare_engine(blob, blob_waves, "blob_box",
+                                            engine) for engine in ENGINES}
     del blob_waves
     b2_renders = []
     cd = torch.from_numpy(camera_ray_data(blob_cam, SMALL_W, SMALL_H)).to(dev)
@@ -409,10 +544,15 @@ def main(argv=None) -> int:
     b6_checks = [compare_render(blob, cd, SMALL_W, SMALL_H, depth, check,
                                 "blob_box")
                  for depth, check in ((4, wave_check), (12, deep_check))]
+    engine_render_checks = {engine: engine_renders(blob, cd, engine)
+                            for engine in ENGINES}
     del blob
     require_agreement("B2", b2_checks + b2_renders)
     require_agreement("B3", b3_checks)
     require_agreement("B6", b6_checks)
+    for engine in ENGINES:
+        require_agreement(engine, engine_checks[engine]
+                          + engine_render_checks[engine])
 
     # the large scene of the main path: blob_box subdivided three levels
     t0 = time.perf_counter()
@@ -441,6 +581,10 @@ def main(argv=None) -> int:
     require_agreement("B2", b2_checks)
     b3_checks += compare_full(big, big_waves, "blob_box x3")
     require_agreement("B3", b3_checks)
+    for engine in ENGINES:
+        engine_checks[engine] += compare_engine(big, big_waves, "blob_box x3",
+                                                engine)
+        require_agreement(engine, engine_checks[engine])
     wave_ms = {}
     for (org, dirn, tnear), name in zip(big_waves, ("primary", "bounce 1")):
         # B2 and its plain version in turns, B3 between, B3's plain once
@@ -468,9 +612,80 @@ def main(argv=None) -> int:
         print(f"B3 timing blob_box x3 {MAIN_W}x{MAIN_H} {name} wave: kernel "
               f"{row['b3_ms']:.4f} ms {timings['b3_ms']} (B2 "
               f"{row['kernel_ms']:.4f} ms), plain {row['b3_plain_ms']:.2f} ms")
+
+        # 3e, 3f: B4 and B5 in turns with B2; B5's lists (cull and sort in
+        # torch ops) are made once and timed apart from the kernel
+        lists = {engine: pt.visit_lists(big, org, dirn, tnear,
+                                        wf.parse_engine(engine)[1])
+                 for engine in ("pairs", "pairs8")}
+        runs = {"b2": lambda: wf.trace_bricks_cuda(big, *org, *dirn, tnear),
+                "slim2": lambda: wf.trace_bricks_slim2_cuda(big, *org, *dirn,
+                                                            tnear)}
+        for engine, (brk, ent, cnt) in lists.items():
+            rows = wf.parse_engine(engine)[1]
+            runs[engine] = (lambda brk=brk, ent=ent, cnt=cnt, rows=rows:
+                            pt.trace_pairs_cuda(big, *org, *dirn, tnear, brk,
+                                                ent, cnt, rows * pt.LANES))
+            runs[engine + "_lists"] = (
+                lambda rows=rows: pt.visit_lists(big, org, dirn, tnear, rows))
+        timings = {which: [] for which in runs}
+        for which in ("b2", "slim2", "pairs", "pairs8", "pairs_lists",
+                      "pairs8_lists", "pairs8", "pairs", "slim2", "b2"):
+            timings[which].append(cuda_ms(runs[which], 10))
+        row["engines"] = {which: statistics.median(v)
+                          for which, v in timings.items()}
+        row["engine_timings"] = timings
+        row["pairs_per_packet"] = {
+            engine: {"packets": int(cnt.numel()),
+                     "mean": float(cnt.float().mean()), "max": int(cnt.max())}
+            for engine, (_, _, cnt) in lists.items()}
+        e = row["engines"]
+        print(f"B4 timing blob_box x3 {MAIN_W}x{MAIN_H} {name} wave: kernel "
+              f"{e['slim2']:.4f} ms {timings['slim2']} beside B2 "
+              f"{e['b2']:.4f} ms {timings['b2']} in turns")
+        for engine in ("pairs", "pairs8"):
+            ppp = row["pairs_per_packet"][engine]
+            print(f"B5 timing blob_box x3 {MAIN_W}x{MAIN_H} {name} wave, "
+                  f"{engine}: kernel {e[engine]:.4f} ms {timings[engine]}, "
+                  f"cull + sort {e[engine + '_lists']:.4f} ms; "
+                  f"{ppp['packets']} packets, {ppp['mean']:.2f} pairs per "
+                  f"packet (max {ppp['max']} of {big.num_bricks} bricks)")
+        del lists, runs
+    for engine in ENGINES:
+        for check in engine_checks[engine]:
+            if check["scene"] == "blob_box x3":
+                wave_ms[check["wave"]][engine + "_plain_ms"] = \
+                    check["plain_ms"]
+                print(f"{engine} plain version blob_box x3 {check['wave']} "
+                      f"wave: {check['plain_ms']:.2f} ms (one run)")
     del big_waves
     b2_err = max(c["max_abs_err"] for c in b2_checks)
     b3_err = max(c["max_abs_err"] for c in b3_checks)
+
+    # Bounds of the per-wave traces on the sorted first-bounce wave, the
+    # wave their times are of.  Operations: what this wave's rays need, from
+    # B3's per-ray counters on it (a box test per node popped and per gate
+    # of each brick entered, 32 triangle tests per gate passed).  Bytes: the
+    # bricks and the top tree once, the rays in (24 bytes each) and the
+    # result out (8 bytes; B3's record 64).
+    def walk_ops(counters):
+        return ((counters["nodes"]["mean"] + 16 * counters["bricks"]["mean"])
+                * BOX_OPS + counters["chunks"]["mean"] * 32 * TRI_OPS)
+
+    big_counters = {c["wave"]: c["counters"] for c in b3_checks
+                    if c["scene"] == "blob_box x3"}
+    wave_rays = wave_ms["bounce 1"]["rays"]
+    scene_bytes = (big.brick_data.numel() + big.top_boxes.numel()
+                   + big.top_links.numel()) * 4
+    wave_ops = wave_rays * walk_ops(big_counters["bounce 1"])
+    slim_bound = bound(scene_bytes + wave_rays * 32, wave_ops)
+    full_bound = bound(scene_bytes + wave_rays * 88, wave_ops)
+    # B5 also reads its packets' lists (a brick id and a bound per pair)
+    pair_bound = bound(
+        scene_bytes + wave_rays * 32
+        + 8 * wave_ms["bounce 1"]["pairs_per_packet"]["pairs"]["mean"]
+        * wave_ms["bounce 1"]["pairs_per_packet"]["pairs"]["packets"],
+        wave_ops)
 
     # -- 3d. kernel B6 on the large scene: agreement at depth 4, and times
     # at the main path's shape
@@ -515,7 +730,8 @@ def main(argv=None) -> int:
                    brick_data_bytes=big.brick_data.numel() * 4)
 
     counters = (mk.megakernel_cuda, wf.trace_bricks_cuda,
-                wf.trace_bricks_full_cuda, bk.render_bricks_cuda)
+                wf.trace_bricks_full_cuda, bk.render_bricks_cuda,
+                wf.trace_bricks_slim2_cuda, pt.trace_pairs_cuda)
 
     def zero_counts():
         for wrapper in counters:
@@ -538,7 +754,7 @@ def main(argv=None) -> int:
     if launches != warmup + frames or any(others):
         raise SystemExit(f"chip_smoke: {launches} kernel launches for "
                          f"{warmup + frames} frames, {others} launches of "
-                         f"B2, B3, B6")
+                         f"B2, B3, B6, B4, B5")
     median_ms = statistics.median(frame_ms)
     # the highest percentile with ten frames beyond it
     tail_ms = sorted(frame_ms)[frames - 11]
@@ -581,6 +797,14 @@ def main(argv=None) -> int:
     stats = {}
     wf.render_samples_wavefront(big, cd, MAIN_W, MAIN_H, 0, SPP, stats=stats)
     big_path_len = stats["rays"] / (MAIN_W * MAIN_H * SPP)
+    # B6 walks every ray of the frame: the primary rays at the primary
+    # wave's counters, the others at the first-bounce wave's; it reads the
+    # scene once and writes the image
+    frame_rays = MAIN_W * MAIN_H * SPP
+    b6_bound = bound(
+        scene_bytes + big.sph_rows.numel() * 4 + MAIN_W * MAIN_H * 12,
+        frame_rays * walk_ops(big_counters["primary"])
+        + (stats["rays"] - frame_rays) * walk_ops(big_counters["bounce 1"]))
     big_renderer = ProgressiveRenderer(big, big_cam, MAIN_W, MAIN_H,
                                        RenderConfig(), device="cuda")
     if big_renderer.mode != "wavefront":
@@ -599,8 +823,8 @@ def main(argv=None) -> int:
     others = [w.launches for w in counters if w is not wf.trace_bricks_cuda]
     if b2_launches != waves or waves < warmup + big_frames or any(others):
         raise SystemExit(f"chip_smoke: {b2_launches} B2 launches for {waves} "
-                         f"waves, {others} launches of B1, B3, B6 on the "
-                         f"large scene")
+                         f"waves, {others} launches of B1, B3, B6, B4, B5 on "
+                         f"the large scene")
     big_median = statistics.median(big_ms)
     big_msamples = MAIN_W * MAIN_H * SPP / (big_median * 1e-3) / 1e6
     print(f"large main path {MAIN_W}x{MAIN_H} spf {SPP} depth 50: "
@@ -660,7 +884,7 @@ def main(argv=None) -> int:
             or bricks_renderer.waves != 0:
         raise SystemExit(f"chip_smoke: {b6_launches} B6 launches for "
                          f"{warmup + big_frames} frames, {others} launches "
-                         f"of B1, B2, B3 in bricks mode")
+                         f"of B1, B2, B3, B4, B5 in bricks mode")
     bricks_median = statistics.median(bricks_ms)
     bricks_msamples = MAIN_W * MAIN_H * SPP / (bricks_median * 1e-3) / 1e6
     print(f"bricks path {MAIN_W}x{MAIN_H} spf {SPP} depth 50: {big_frames} "
@@ -699,7 +923,77 @@ def main(argv=None) -> int:
                    bricks_msamples_per_s=bricks_msamples,
                    b6_launches=b6_launches,
                    bricks_image_mean=float(bricks_img.mean()))
-    del bricks_renderer, big
+    del bricks_renderer
+
+    # -- 4e, 4f. the large scene through the opt-in engines, same shape -----
+    def drive_engine(engine, wrapper, kernel):
+        config = RenderConfig(wavefront_trace=engine)
+        renderer = ProgressiveRenderer(big, big_cam, MAIN_W, MAIN_H, config,
+                                       device="cuda")
+        if renderer.mode != "wavefront":
+            raise SystemExit(f"chip_smoke: {engine} took {renderer.mode}")
+        zero_counts()
+        for _ in range(warmup):
+            renderer.step(sync=True)
+        ms = []
+        for _ in range(big_frames):
+            renderer.step(sync=True)
+            ms.append(renderer.frame_ms)
+        launches = wrapper.launches
+        others = [w.launches for w in counters if w is not wrapper]
+        if launches != renderer.waves or launches < warmup + big_frames \
+                or any(others):
+            raise SystemExit(f"chip_smoke: {launches} {kernel} launches for "
+                             f"{renderer.waves} waves with {engine}, {others} "
+                             f"launches of the other kernels")
+        median = statistics.median(ms)
+        img = renderer.hdr()
+        if not (img.shape == (MAIN_H, MAIN_W, 3) and np.isfinite(img).all()
+                and img.mean() > 0 and img.std() > 0):
+            raise SystemExit(f"chip_smoke: the {engine} image is not finite "
+                             f"and non-flat")
+        # the same samples as 4b's image, through another engine
+        against = deep_check(img, big_img)
+        if not against["ok"]:
+            raise SystemExit(f"chip_smoke: the {engine} image disagrees with "
+                             f"the default engine's: {against}")
+        print(f"{engine} path {MAIN_W}x{MAIN_H} spf {SPP} depth 50: "
+              f"{big_frames} synced frames, median {median:.4f} ms, max "
+              f"{max(ms):.4f} ms (min {min(ms):.4f}), "
+              f"{MAIN_W * MAIN_H * SPP / (median * 1e-3) / 1e6:.4f} "
+              f"Msamples/s, {renderer.waves / (warmup + big_frames):.2f} "
+              f"waves per frame; {kernel} launches {launches} for "
+              f"{renderer.waves} waves, no B2 launch; against the default "
+              f"engine's image after {renderer.sample_count} spp: mismatch "
+              f"share {against['mismatch_share']:.3e}, mean abs err "
+              f"{against['mean_abs_err']:.3e}; beside the default engine's "
+              f"median {big_median:.4f} ms in this call "
+              f"({median / big_median:.2f} times as long)")
+        path = mk.BUILD_DIR / f"chip_smoke_blob_box_x3_{engine}.png"
+        renderer.save_png(str(path))
+        cam = renderer.camera
+        renderer.set_camera(Camera((0.2,) + tuple(cam.lookfrom[1:]),
+                                   cam.lookat, cam.up, cam.vfov))
+        if renderer.sample_count != 0:
+            raise SystemExit(f"chip_smoke: a camera move did not reset "
+                             f"{engine}")
+        renderer.step()
+        if renderer.sample_count != SPP \
+                or not np.isfinite(renderer.hdr()).all():
+            raise SystemExit(f"chip_smoke: the {engine} step after the reset "
+                             f"failed")
+        results[f"{engine}_path"] = {
+            "frame_ms": ms, "median_frame_ms": median, "launches": launches,
+            "waves": renderer.waves, "image_mean": float(img.mean()),
+            "vs_default_engine": against}
+        return launches, path
+
+    b4_launches, slim2_png = drive_engine("slim2", wf.trace_bricks_slim2_cuda,
+                                          "B4")
+    b5_launches, pairs_png = drive_engine("pairs", pt.trace_pairs_cuda, "B5")
+    results.update(engine_checks=engine_checks,
+                   engine_render_checks=engine_render_checks)
+    del big
 
     # -- 4d. the kernel-stats entry point (kernel B3) ----------------------
     zero_counts()
@@ -725,7 +1019,7 @@ def main(argv=None) -> int:
     if args.out:
         out = Path(args.out)
         out.mkdir(parents=True, exist_ok=True)
-        for path in (png, big_png, bricks_png, cli_png):
+        for path in (png, big_png, bricks_png, slim2_png, pairs_png, cli_png):
             shutil.copy(path, out / path.name)
         (out / "chip_smoke_results.json").write_text(
             json.dumps(results, indent=1))
@@ -740,6 +1034,8 @@ def main(argv=None) -> int:
         "max_abs_err": main_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
+        **b1_bound,
+        "library_ms": None,
     }, {
         # times: one sorted first-bounce wave of the large main path
         "name": "brick_trace",
@@ -750,6 +1046,8 @@ def main(argv=None) -> int:
         "max_abs_err": b2_err,
         "ms": wave_ms["bounce 1"]["kernel_ms"],
         "plain_ms": wave_ms["bounce 1"]["plain_ms"],
+        **slim_bound,
+        "library_ms": None,
     }, {
         # launches: the kernel-stats entry point; times: the same wave as
         # brick_trace's
@@ -761,6 +1059,8 @@ def main(argv=None) -> int:
         "max_abs_err": b3_err,
         "ms": wave_ms["bounce 1"]["b3_ms"],
         "plain_ms": wave_ms["bounce 1"]["b3_plain_ms"],
+        **full_bound,
+        "library_ms": None,
     }, {
         # times: one 640x480, 2-spp, depth-50 frame of the large scene
         "name": "brick_render",
@@ -771,6 +1071,36 @@ def main(argv=None) -> int:
         "max_abs_err": b6_err,
         "ms": b6_ms,
         "plain_ms": b6_plain_ms,
+        **b6_bound,
+        "library_ms": None,
+    }, {
+        # launches: the "slim2" path (4e); times: the same wave as
+        # brick_trace's
+        "name": "brick_trace_slim2",
+        "route": "cuda",
+        "source": str(wf.SLIM2_SOURCE.resolve().relative_to(root)),
+        "replaces": "pathtracer_cuda_interactive_tpu/ops/wavefront.py:142",
+        "launches": b4_launches,
+        "max_abs_err": max(c["max_abs_err"] for c in engine_checks["slim2"]),
+        "ms": wave_ms["bounce 1"]["engines"]["slim2"],
+        "plain_ms": wave_ms["bounce 1"]["slim2_plain_ms"],
+        **slim_bound,
+        "library_ms": None,
+    }, {
+        # launches: the "pairs" path (4f); times: the same wave, 32-row
+        # packets, the kernel alone (lists_ms: the cull and sort before it)
+        "name": "pair_trace",
+        "route": "cuda",
+        "source": str(pt.SOURCE.resolve().relative_to(root)),
+        "replaces": "pathtracer_cuda_interactive_tpu/ops/pairtrace.py:151",
+        "launches": b5_launches,
+        "max_abs_err": max(c["max_abs_err"] for c in engine_checks["pairs"]
+                           + engine_checks["pairs8"]),
+        "ms": wave_ms["bounce 1"]["engines"]["pairs"],
+        "lists_ms": wave_ms["bounce 1"]["engines"]["pairs_lists"],
+        "plain_ms": wave_ms["bounce 1"]["pairs_plain_ms"],
+        **pair_bound,
+        "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

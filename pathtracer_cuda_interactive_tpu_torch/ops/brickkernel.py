@@ -4,13 +4,17 @@ The JAX package's brick intersector (``pathtracer_cuda_interactive_tpu/
 ops/brickkernel.py::make_brick_intersect``) finds, for every ray, the
 closest hit over a ``BrickSet`` (models/bricks.py): a walk of the skip-link
 top tree, nearer child first, whose leaves are bricks of 512 triangles
-behind 16 chunk gates of 32 triangles.  Three TPU kernels are built on it,
+behind 16 chunk gates of 32 triangles.  Four TPU kernels are built on it,
 and this module holds their plain versions in torch:
 
 * ``trace_bricks_plain`` — the slim walk of kernel B2 (``slim=True``):
   ``(t, slot)``, the hit distance (inf on a miss) and ``slot = brick * 512
   + k``, the row of the winning triangle in the flattened brick records,
   or -1.  Spheres are left to the caller (ops/wavefront.py).
+* ``trace_bricks_pipelined_plain`` — the same contract through kernel B4's
+  walk, which defers every leaf by one (the JAX package's
+  ``make_brick_intersect_pipelined``): the same (t, slot), more nodes and
+  bricks visited.
 * ``trace_bricks_full_plain`` — the full-record walk of kernel B3
   (``slim=False``): the resident spheres first, then the bricks, each with
   a strict ``t < best`` (so a sphere wins an equal-t tie), and the
@@ -23,9 +27,10 @@ and this module holds their plain versions in torch:
   walk and then the wavefront's bounce (ops/wavefront.py::_shade), with no
   sort and no compaction of the path state.
 
-They are the CPU paths (ops/wavefront.py sends CPU waves to the first two,
-``render_tiles_bricks`` CPU renders to the third) and what the CUDA kernels
-(csrc/brick_trace.cu, csrc/brick_render.cu) are held to on the card.  Both
+They are the CPU paths (ops/wavefront.py sends CPU waves to the first
+three, ``render_tiles_bricks`` CPU renders to the last) and what the CUDA
+kernels (csrc/brick_trace.cu, csrc/brick_trace_slim2.cu,
+csrc/brick_render.cu) are held to on the card.  Both
 walk per ray, as the reference CUDA design does (scene.h:246-301), where
 the TPU walks per packet of 2048 rays:
 
@@ -135,13 +140,19 @@ def _leaf(tris, subs, brick, o: Vec3, d: Vec3, inv: Vec3, tnear: float,
 
 
 def _walk(bricks: BrickSet, o: Vec3, d: Vec3, tnear: float, best_t,
-          full: bool):
+          full: bool, pipelined: bool = False):
     """The per-ray walk of every ray of [m] components ``o``, ``d``, below
     the start distances ``best_t``.  Returns (t, slot, uv, counts): the
     closest triangle's t where one is strictly nearer than ``best_t`` (else
     ``best_t``) and its slot (else -1); with ``full``, its (u, v) (else
     zeros), otherwise None; and the [3, m] int32 counts of nodes popped,
-    bricks entered and chunk gates passed."""
+    bricks entered and chunk gates passed.
+
+    ``pipelined`` defers every leaf by one (kernel B4's walk): a leaf that
+    is found becomes pending, and the pending leaf is tested only when the
+    next leaf is found or the stack runs out, so the nodes between two
+    leaves are classified against the best t from before the pending
+    leaf's tests."""
     dev = o.x.device
     m = int(o.x.numel())
     out_t = best_t.clone()
@@ -163,25 +174,39 @@ def _walk(bricks: BrickSet, o: Vec3, d: Vec3, tnear: float, best_t,
     stack = torch.zeros((m, bricks.top_depth + 2), dtype=torch.int64,
                         device=dev)
     sp = torch.ones(m, dtype=torch.int64, device=dev)
+    # the pending leaf's brick (-1: none); stays -1 unless pipelined
+    pend = torch.full((m,), -1, dtype=torch.int64, device=dev)
 
     while ids.numel():
         rows = torch.arange(ids.numel(), device=dev)
-        sp = sp - 1
+        # a ray whose stack is empty is still here only for its pending leaf
+        have = sp > 0
+        sp_in = sp
+        sp = sp - have.to(torch.int64)
         node = stack[rows, sp]
         box = boxes[node]
         tn, tf = g.slab_interval(o, inv, Vec3(box[:, 0], box[:, 1], box[:, 2]),
                                  Vec3(box[:, 3], box[:, 4], box[:, 5]))
-        hit = g.slab_hit(tn, tf, best_t)
+        hit = g.slab_hit(tn, tf, best_t) & have
         brick = links[node, 1]
-        counts[0] += 1
+        counts[0] += have
 
-        leaf = torch.nonzero(hit & (brick >= 0)).reshape(-1)
+        found = hit & (brick >= 0)
+        if pipelined:
+            # (JAX make_brick_intersect_pipelined: do_drain)
+            drain = (pend >= 0) & (found | (sp_in <= 1))
+            drain_brick = pend
+            pend = torch.where(found, brick,
+                               torch.where(drain, -1, pend))
+        else:
+            drain, drain_brick = found, brick
+        leaf = torch.nonzero(drain).reshape(-1)
         counts[1, leaf] += 1
         for c0 in range(0, int(leaf.numel()), LEAF_CHUNK):
             li = leaf[c0:c0 + LEAF_CHUNK]
             sel = lambda v, li=li: Vec3(v.x[li], v.y[li], v.z[li])
             bt, bs, buv, gates = _leaf(
-                tris, subs, brick[li], sel(o), sel(d), sel(inv), tnear,
+                tris, subs, drain_brick[li], sel(o), sel(d), sel(inv), tnear,
                 best_t[li], best_slot[li],
                 (uv[0][li], uv[1][li]) if full else None)
             best_t[li] = bt
@@ -208,7 +233,7 @@ def _walk(bricks: BrickSet, o: Vec3, d: Vec3, tnear: float, best_t,
             stack[di, sp[di] + 1] = near      # popped first
             sp[di] += 2
 
-        done = sp == 0
+        done = (sp == 0) & (pend < 0)
         if bool(done.any()):
             fin = ids[done]
             out_t[fin] = best_t[done]
@@ -218,7 +243,7 @@ def _walk(bricks: BrickSet, o: Vec3, d: Vec3, tnear: float, best_t,
                 out_uv[0][fin] = uv[0][done]
                 out_uv[1][fin] = uv[1][done]
             keep = ~done
-            ids, sp, stack = ids[keep], sp[keep], stack[keep]
+            ids, sp, stack, pend = ids[keep], sp[keep], stack[keep], pend[keep]
             best_t, best_slot = best_t[keep], best_slot[keep]
             counts = counts[:, keep]
             if full:
@@ -234,11 +259,8 @@ def _ray_ids(active, n: int, device):
             else torch.nonzero(active.reshape(-1)).reshape(-1))
 
 
-def trace_bricks_plain(bricks: BrickSet, org: Vec3, dirn: Vec3,
-                       tnear: float, active=None):
-    """Closest triangle hit of every ray over the brick set: (t f32, inf on
-    a miss; slot i32, -1 on a miss), each of the rays' shape.  Rays where
-    ``active`` is False are not traced.  Spheres are not tested."""
+def _trace_slim_plain(bricks: BrickSet, org: Vec3, dirn: Vec3, tnear: float,
+                      active, collect_stats: bool, pipelined: bool):
     shape = org.x.shape
     dev = org.x.device
     n = org.x.numel()
@@ -249,10 +271,42 @@ def trace_bricks_plain(bricks: BrickSet, org: Vec3, dirn: Vec3,
     d = Vec3(*(c.reshape(-1)[ids] for c in dirn))
     start = torch.full((int(ids.numel()),), INF, dtype=torch.float32,
                        device=dev)
-    t, slot, _, _ = _walk(bricks, o, d, tnear, start, full=False)
+    t, slot, _, counts = _walk(bricks, o, d, tnear, start, full=False,
+                               pipelined=pipelined)
     out_t[ids] = t
     out_slot[ids] = slot
-    return out_t.reshape(shape), out_slot.reshape(shape)
+    if not collect_stats:
+        return out_t.reshape(shape), out_slot.reshape(shape)
+    out_counts = torch.zeros((3, n), dtype=torch.int32, device=dev)
+    out_counts[:, ids] = counts
+    return (out_t.reshape(shape), out_slot.reshape(shape),
+            out_counts.reshape((3,) + shape))
+
+
+def trace_bricks_plain(bricks: BrickSet, org: Vec3, dirn: Vec3,
+                       tnear: float, active=None,
+                       collect_stats: bool = False):
+    """Closest triangle hit of every ray over the brick set: (t f32, inf on
+    a miss; slot i32, -1 on a miss), each of the rays' shape.  Rays where
+    ``active`` is False are not traced.  Spheres are not tested.  With
+    ``collect_stats`` also the int32 [3, *shape] per-ray counts of nodes
+    popped, bricks entered and chunk gates passed."""
+    return _trace_slim_plain(bricks, org, dirn, tnear, active, collect_stats,
+                             pipelined=False)
+
+
+def trace_bricks_pipelined_plain(bricks: BrickSet, org: Vec3, dirn: Vec3,
+                                 tnear: float, active=None,
+                                 collect_stats: bool = False):
+    """Kernel B4's plain version: ``trace_bricks_plain``'s contract through
+    the walk with the deferred leaf (``_walk(pipelined=True)``).  The best
+    t the walk prunes with is one leaf stale, which only admits more nodes
+    and leaves: with strict ``t < best`` and leaves tested in the walk's
+    own order the winner is the same, so (t, slot) equal
+    ``trace_bricks_plain``'s bit for bit, while the counters are at least
+    its counters."""
+    return _trace_slim_plain(bricks, org, dirn, tnear, active, collect_stats,
+                             pipelined=True)
 
 
 def slot_rows(bricks: BrickSet, slot) -> torch.Tensor:

@@ -4,7 +4,8 @@ Each ``csrc/*.cu`` file has a plain C launch function and is compiled on
 its own for ``sm_90a`` into a shared library under ``_build/`` beside the
 package, named by a hash of its source, the shared ``csrc/*.cuh`` headers
 and the flags, then loaded with ``ctypes`` by its op module
-(ops/megakernel.py, ops/wavefront.py, ops/brickkernel.py).  A
+(ops/megakernel.py, ops/wavefront.py, ops/brickkernel.py,
+ops/pairtrace.py).  A
 library that is already there is reused.  A missing ``nvcc`` or a failed
 build raises: there is no fallback.
 

@@ -8,8 +8,9 @@ are synchronous WAVES over all rays of a frame:
            16-bit target signature of which coarse scene regions the ray's
            line can touch, ``_sig_key``, above an origin Morton code), so
            that neighbouring rays walk the same part of the tree;
-  each     one closest-triangle trace (kernel B2, ``trace_wave_slim``),
-           the winner's record gathered and the resident spheres folded in
+  each     one closest-triangle trace by the chosen engine (``parse_engine``;
+           kernel B2, ``trace_wave_slim``, unless asked otherwise), the
+           winner's record gathered and the resident spheres folded in
            (``_record_from_slots``), optional point-light NEE with shadow
            waves (``_nee_term``), and one bounce of shading, BSDF sampling
            and Russian roulette (``_shade``) in torch ops (ops/brdf.py, the
@@ -29,15 +30,20 @@ renders are bit-reproducible on the card.
 ``trace_wave_slim`` dispatches on the device of the rays: CUDA tensors
 launch the hand-written kernel (``trace_bricks_cuda``, csrc/brick_trace.cu)
 and never fall back; CPU tensors run its plain version
-(ops/brickkernel.py::trace_bricks_plain).  ``trace_wave_full`` does the
-same for kernel B3 (``trace_bricks_full_cuda``, the same source), the
-16-channel record with optional per-ray traversal counters, which the
-JAX package's tools and the port's render/kernel_stats.py call.
+(ops/brickkernel.py::trace_bricks_plain).  ``trace_wave_slim2`` does the
+same for kernel B4, the walk with the deferred leaf
+(``trace_bricks_slim2_cuda``, csrc/brick_trace_slim2.cu; plain version
+``trace_bricks_pipelined_plain``), ops/pairtrace.py::trace_wave_pairs for
+kernel B5, and ``trace_wave_full`` for kernel B3 (``trace_bricks_full_cuda``,
+B2's source), the 16-channel record with optional per-ray traversal
+counters, which the JAX package's tools and the port's
+render/kernel_stats.py call.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import re
 from pathlib import Path
 
@@ -48,10 +54,12 @@ from torch.profiler import record_function
 from ..models.bricks import BRICK_ROWS, STACK_DEPTH, BrickSet
 from . import brdf, cuda_build, rng
 from .brickkernel import (slot_rows, tile_grid, trace_bricks_full_plain,
-                          trace_bricks_plain, triangle_record)
+                          trace_bricks_pipelined_plain, trace_bricks_plain,
+                          triangle_record)
 from .camera import generate_primary_rays
 from .geometry import intersect_sphere
 from .integrator import MAX_DEPTH, RR_START_DEPTH, SECONDARY_TNEAR
+from .pairtrace import PACKET_ROWS, trace_wave_pairs
 from .vec import Vec3, cross, dot, max_elem, normalize, where
 
 LANES = 128
@@ -66,25 +74,49 @@ MAX_RAYS_PER_WAVE = 1 << 21
 SORT_MODES = ("sig_mort", "mort_oct", "none")
 
 SOURCE = cuda_build.CSRC_DIR / "brick_trace.cu"
+SLIM2_SOURCE = cuda_build.CSRC_DIR / "brick_trace_slim2.cu"
 BUILD_DIR = cuda_build.BUILD_DIR
 
 _lib = None
+_slim2_lib = None
 
 
 # -- engines -----------------------------------------------------------------
 
-def check_engine(trace: str) -> None:
-    """Accept the per-wave trace engine "slim" (kernel B2).  The JAX
-    package's other engines raise NotImplementedError: "slim[N]" and
-    "slimg[N]" are packet sizes of the TPU's packet walk, which a per-ray
-    kernel does not have; "slim2" is kernel B4 and "pairs[N]" kernel B5."""
-    if trace == "slim":
-        return
-    if re.fullmatch(r"slim\d+|slimg\d*|pairs\d*", trace):
-        raise NotImplementedError(
-            f"wavefront trace engine {trace!r} is not ported (ROADMAP A9); "
-            "the port traces with 'slim'")
-    raise ValueError(f"unknown wavefront trace engine {trace!r}")
+def parse_engine(trace: str):
+    """(engine, number) of a per-wave trace engine name, as the JAX
+    package's ``trace_tri`` reads it:
+      "slim2"     -> ("slim2", 0): kernel B4, the walk with the deferred leaf;
+      "pairs[N]"  -> ("pairs", N): kernel B5 with N rows of 128 rays per
+                     packet (default ``pairtrace.PACKET_ROWS``);
+      "slimg[N]"  -> ("slimg", N): kernel B2 (N defaults to 8);
+      "slim[N]"   -> ("slim", N): kernel B2 (N defaults to 0).
+    A given N must be a positive integer.  "slim[N]" and "slimg[N]" size
+    the packets and row groups of the TPU's packet walk; kernel B2 walks
+    per ray and has neither, so every N runs the same kernel.  Raises
+    ValueError for any other name."""
+    if trace == "slim2":
+        return "slim2", 0
+    match = re.fullmatch(r"(pairs|slimg|slim)(\d*)", trace)
+    if match is None:
+        raise ValueError(f"unknown wavefront trace engine {trace!r}")
+    engine, digits = match.groups()
+    if digits and int(digits) < 1:
+        raise ValueError(f"wavefront trace engine {trace!r}: the number "
+                         "must be a positive integer")
+    default = {"pairs": PACKET_ROWS, "slimg": 8, "slim": 0}[engine]
+    return engine, int(digits) if digits else default
+
+
+def engine_tracer(trace: str):
+    """The per-wave trace ``tracer(bricks, org, dirn, tnear) -> (t, slot)``
+    of engine name ``trace`` (``parse_engine``)."""
+    engine, number = parse_engine(trace)
+    if engine == "pairs":
+        return functools.partial(trace_wave_pairs, packet_rows=number)
+    if engine == "slim2":
+        return trace_wave_slim2
+    return trace_wave_slim
 
 
 # -- kernel B2 on the card (the library holds B3 too) -------------------------
@@ -194,6 +226,79 @@ def trace_wave_slim(bricks: BrickSet, org: Vec3, dirn: Vec3, tnear: float):
     if device.type != "cuda":
         raise ValueError(f"no brick trace for device {device}")
     return trace_bricks_cuda(bricks, *org, *dirn, tnear)
+
+
+# -- kernel B4 on the card ----------------------------------------------------
+
+def load_slim2_library() -> ctypes.CDLL:
+    """Build (if needed) csrc/brick_trace_slim2.cu (kernel B4) and load it,
+    once per process.  Raises if nvcc is missing or the build fails."""
+    global _slim2_lib
+    if _slim2_lib is None:
+        lib = ctypes.CDLL(str(cuda_build.build(SLIM2_SOURCE, BUILD_DIR)))
+        fn = lib.pt_brick_trace_slim2_launch
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr,   # ox oy oz dx dy dz
+                       i32, ctypes.c_float,            # n, tnear
+                       ptr, ptr, ptr,                  # boxes, links, bricks
+                       ptr, ptr,                       # out_t, out_slot
+                       i32, ptr]                       # staged, stream
+        fn.restype = ctypes.c_int
+        _slim2_lib = lib
+    return _slim2_lib
+
+
+def trace_bricks_slim2_cuda(bricks: BrickSet, ox: torch.Tensor,
+                            oy: torch.Tensor, oz: torch.Tensor,
+                            dx: torch.Tensor, dy: torch.Tensor,
+                            dz: torch.Tensor, tnear: float,
+                            staged: bool = True):
+    """Launch kernel B4 on the current stream: ``trace_bricks_cuda``'s
+    contract and output, through the walk that starts the next leaf's
+    chunk-gate row on its way before it tests the pending leaf.  ``staged``
+    picks how: True, the engine's way, copies the row with cp.async into
+    the thread's shared-memory slots; False only prefetches it toward L2
+    (render/kernel_stats.py times both).  Adds one to
+    ``trace_bricks_slim2_cuda.launches`` per launch; an empty wave launches
+    nothing."""
+    n = _check_wave(bricks, (ox, oy, oz, dx, dy, dz),
+                    "trace_bricks_slim2_cuda")
+    device = ox.device
+    out_t = torch.empty(n, dtype=torch.float32, device=device)
+    out_slot = torch.empty(n, dtype=torch.int32, device=device)
+    if n == 0:
+        return out_t, out_slot
+    lib = load_slim2_library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.pt_brick_trace_slim2_launch(
+            ox.data_ptr(), oy.data_ptr(), oz.data_ptr(), dx.data_ptr(),
+            dy.data_ptr(), dz.data_ptr(), n, float(tnear),
+            bricks.top_boxes.data_ptr(), bricks.top_links.data_ptr(),
+            bricks.brick_data.data_ptr(), out_t.data_ptr(),
+            out_slot.data_ptr(), int(staged), stream)
+    if err != 0:
+        raise RuntimeError(f"brick_trace_slim2 launch failed: CUDA error "
+                           f"{err}")
+    trace_bricks_slim2_cuda.launches += 1
+    return out_t, out_slot
+
+
+trace_bricks_slim2_cuda.launches = 0
+
+
+def trace_wave_slim2(bricks: BrickSet, org: Vec3, dirn: Vec3, tnear: float):
+    """(t, slot) closest triangle hit of one wave of rays ([N] components)
+    through the walk with the deferred leaf.  CUDA tensors launch kernel
+    B4; CPU tensors run its plain version."""
+    device = org.x.device
+    if bricks.device != device:
+        raise ValueError(f"bricks on {bricks.device}, rays on {device}")
+    if device.type == "cpu":
+        return trace_bricks_pipelined_plain(bricks, org, dirn, tnear)
+    if device.type != "cuda":
+        raise ValueError(f"no brick trace for device {device}")
+    return trace_bricks_slim2_cuda(bricks, *org, *dirn, tnear)
 
 
 # -- kernel B3 on the card -----------------------------------------------------
@@ -599,17 +704,17 @@ def render_samples_wavefront(brickset: BrickSet, cam_data: torch.Tensor,
     """Large-scene drop-in for ops.integrator.render_samples: the radiance
     SUM of ``num_samples`` passes, [H, W, 3], on ``cam_data``'s device.
 
-    ``trace`` names the per-wave engine ("slim", kernel B2; see
-    ``check_engine``).  The JAX package's ``compact_tail`` and
+    ``trace`` names the per-wave engine of the closest-hit and the shadow
+    waves ("slim", kernel B2, "slim2", kernel B4, "pairs[N]", kernel B5;
+    see ``parse_engine``).  The JAX package's ``compact_tail`` and
     ``tail_trace`` shaped its compaction ladder; the per-wave compaction
     here does what the ladder did, so they have no counterpart.
     ``sort_mode`` picks the inter-wave key ("sig_mort", "mort_oct" or
     "none").  ``tracer(bricks, org,
-    dirn, tnear) -> (t, slot)`` replaces the per-wave trace (default
-    ``trace_wave_slim``; the chip smoke passes the plain version to hold
-    the kernel to it).  ``stats``, a dict, gets the count of traced waves
+    dirn, tnear) -> (t, slot)`` replaces the engine's per-wave trace (the
+    chip smoke passes a plain version to hold a kernel to it).  ``stats``, a dict, gets the count of traced waves
     ("waves") and rays ("rays") added to it."""
-    check_engine(trace)
+    engine = engine_tracer(trace)
     if sort_mode not in SORT_MODES:
         raise ValueError(f"unknown sort_mode {sort_mode!r}")
     if max_depth < 1:
@@ -617,7 +722,7 @@ def render_samples_wavefront(brickset: BrickSet, cam_data: torch.Tensor,
     dev = cam_data.device
     if brickset.device != dev:
         raise ValueError(f"bricks on {brickset.device}, camera on {dev}")
-    tracer = tracer or trace_wave_slim
+    tracer = tracer or engine
     stats = {} if stats is None else stats
     light_rows = None
     if nee and int(brickset.light_pos.shape[0]) > 0:

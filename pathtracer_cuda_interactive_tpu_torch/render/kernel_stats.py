@@ -10,9 +10,15 @@ takes three waves of the main path's 640x480, 2-sample frame:
 * "bounce 1 sorted": the same rays sorted by the wavefront's "sig_mort"
   key, the wave the main path traces.
 
-For each wave it prints the device ms of kernel B3 (the full record, with
-and without counters) and of kernel B2 (the slim walk) by CUDA events, and
-B3's per-ray counters: nodes popped, bricks entered and chunk gates passed,
+For each wave it prints the device ms, by CUDA events, of kernel B3 (the
+full record, with and without counters), of kernel B2 (the slim walk), of
+kernel B4 (the walk with the deferred leaf: staged through shared memory
+with cp.async, and with an L2 prefetch only) and of kernel B5 (the pair
+lists of 32-row and 8-row packets: the kernel, and the cull and sort in
+torch ops apart), the kernels in turns with B2 before and after; for B5
+the pairs per packet, the share of (block, pair) steps its entry-bound
+early-out skips and the chunks it stages per step; and B3's per-ray
+counters: nodes popped, bricks entered and chunk gates passed,
 each as the per-ray mean and max and as the mean over warps (32
 consecutive rays, one warp of the kernels' launch) of the warp's per-ray
 maximum.  A warp's loop runs as long as its longest walk, so the per-ray
@@ -104,6 +110,7 @@ def main(argv=None) -> int:
     from ..models.bricks import BrickSet
     from ..models.scenepack import pack_scene
     from ..models.subdivide import subdivide_scene
+    from ..ops import pairtrace as pt
     from ..ops import wavefront as wf
     from ..ops.camera import Camera, camera_ray_data
 
@@ -124,6 +131,8 @@ def main(argv=None) -> int:
     print(f"blob_box x{LEVELS}: {bricks.num_bricks} bricks, top depth "
           f"{bricks.top_depth}; host build {time.perf_counter() - t0:.2f} s")
     wf.load_library()
+    wf.load_slim2_library()
+    pt.load_library()
     cd = torch.from_numpy(camera_ray_data(Camera.from_parsed(parsed.camera),
                                           WIDTH, HEIGHT)).to("cuda")
     sorted_waves = capture_waves(bricks, cd, WIDTH, HEIGHT, SPF, "sig_mort")
@@ -136,16 +145,50 @@ def main(argv=None) -> int:
             bricks, *org, *dirn, tnear))
         b3_stats_ms = _cuda_ms(lambda: wf.trace_bricks_full_cuda(
             bricks, *org, *dirn, tnear, collect_stats=True))
-        b2_ms = _cuda_ms(lambda: wf.trace_bricks_cuda(bricks, *org, *dirn,
-                                                      tnear))
+        b2 = lambda: wf.trace_bricks_cuda(bricks, *org, *dirn, tnear)
+        b2_ms = _cuda_ms(b2)
+        b4_ms = _cuda_ms(lambda: wf.trace_bricks_slim2_cuda(
+            bricks, *org, *dirn, tnear))
+        b4_prefetch_ms = _cuda_ms(lambda: wf.trace_bricks_slim2_cuda(
+            bricks, *org, *dirn, tnear, staged=False))
+        pairs = {}
+        for rows in (pt.PACKET_ROWS, 8):
+            brk, ent, cnt = pt.visit_lists(bricks, org, dirn, tnear, rows)
+            _, _, seen = pt.trace_pairs_cuda(bricks, *org, *dirn, tnear, brk,
+                                             ent, cnt, rows * pt.LANES,
+                                             collect_stats=True)
+            steps, skipped, staged = seen.tolist()
+            pairs[f"pairs{rows}"] = {
+                "kernel_ms": _cuda_ms(lambda: pt.trace_pairs_cuda(
+                    bricks, *org, *dirn, tnear, brk, ent, cnt,
+                    rows * pt.LANES)),
+                "lists_ms": _cuda_ms(lambda: pt.visit_lists(
+                    bricks, org, dirn, tnear, rows)),
+                "packets": int(cnt.numel()),
+                "pairs_per_packet": float(cnt.float().mean()),
+                "max_pairs": int(cnt.max()),
+                "skipped_share": skipped / max(steps, 1),
+                "chunks_per_step": staged / max(steps, 1)}
+        b2_again_ms = _cuda_ms(b2)
         _, counts = wf.trace_bricks_full_cuda(bricks, *org, *dirn, tnear,
                                               collect_stats=True)
         summary = counter_summary(counts)
         res["waves"][name] = {"rays": int(org.x.numel()), "b3_ms": b3_ms,
                               "b3_counters_ms": b3_stats_ms, "b2_ms": b2_ms,
-                              "counters": summary}
+                              "b2_again_ms": b2_again_ms, "b4_ms": b4_ms,
+                              "b4_prefetch_ms": b4_prefetch_ms,
+                              "b5": pairs, "counters": summary}
         print(f"{name} wave, {org.x.numel()} rays: B3 {b3_ms:.4f} ms "
-              f"({b3_stats_ms:.4f} with counters), B2 {b2_ms:.4f} ms")
+              f"({b3_stats_ms:.4f} with counters), B2 {b2_ms:.4f} ms "
+              f"(again {b2_again_ms:.4f}), B4 {b4_ms:.4f} ms staged, "
+              f"{b4_prefetch_ms:.4f} ms prefetch only")
+        for key, p in pairs.items():
+            print(f"  B5 {key}: kernel {p['kernel_ms']:.4f} ms, cull + sort "
+                  f"{p['lists_ms']:.4f} ms; {p['packets']} packets, "
+                  f"{p['pairs_per_packet']:.2f} pairs per packet (max "
+                  f"{p['max_pairs']} of {bricks.num_bricks} bricks), "
+                  f"early-out skips {p['skipped_share']:.4f} of the steps, "
+                  f"{p['chunks_per_step']:.4f} chunks staged per step")
         for key in COUNTERS:
             s = summary[key]
             print(f"  {key} per ray: mean {s['mean']:.4f}, max "

@@ -10,7 +10,8 @@ camera compare with epsilon 1e-5 (main.cu:297-312).
 ``_render_mode`` picks one of four compute paths, as the JAX package's
 does: the megakernel (ops/megakernel.py) for scenes of at most
 ``MEGAKERNEL_MAX_PRIMS`` primitives; for larger scenes with triangles the
-sorted wavefront (ops/wavefront.py, kernel B2) or, with
+sorted wavefront (ops/wavefront.py; kernel B2, or B4 or B5 by
+``config.wavefront_trace``) or, with
 ``large_scene_mode="bricks"``, the persistent brick render
 (ops/brickkernel.py, kernel B6); and the plain integrator
 (ops/integrator.py, the JAX package's "xla" mode) for the rest, which are
@@ -36,7 +37,7 @@ from ..ops import integrator
 from ..ops.brickkernel import render_samples_bricks
 from ..ops.camera import Camera, camera_ray_data
 from ..ops.megakernel import MEGAKERNEL_MAX_PRIMS, render_samples_megakernel
-from ..ops.wavefront import check_engine, render_samples_wavefront
+from ..ops.wavefront import parse_engine, render_samples_wavefront
 from ..utils import image as img_util
 from ..utils.config import RenderConfig
 
@@ -90,7 +91,7 @@ class ProgressiveRenderer:
             # wavefront (same BrickSet) has
             self.mode = "wavefront"
         if self.mode == "wavefront":
-            check_engine(config.wavefront_trace)
+            parse_engine(config.wavefront_trace)   # raises on a bad name
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             # never fall back to another device

@@ -8,10 +8,11 @@ main.cu:131, RNG seed 1984 main.cu:61, UI ranges imgui_manager.cpp:101-105).
 Here they live in one dataclass.  Fields of the JAX package's config that
 nothing in the port reads yet return with their slices: the viewer's
 (``fov_*``, ``move_speed``, ``mouse_sensitivity``); its ``setup_jax`` has
-no counterpart.  The large-scene fields keep the JAX defaults; of their
-values the port runs ``large_scene_mode`` "wavefront" and "bricks" and
-``wavefront_trace="slim"``, and the others raise NotImplementedError
-(render/renderer.py, ops/wavefront.py::check_engine).  The JAX package's
+no counterpart.  The large-scene fields keep the JAX defaults; the port
+runs every value of ``wavefront_trace`` (ops/wavefront.py::parse_engine)
+and ``large_scene_mode`` "wavefront" and "bricks"; "mx" and "mx2" raise
+NotImplementedError on a scene that is not a prebuilt BrickSet
+(render/renderer.py).  The JAX package's
 ``wavefront_compact_tail`` and ``wavefront_tail_trace`` shaped its
 compaction ladder; the port compacts after every wave instead
 (ops/wavefront.py), so they have no counterpart.
@@ -44,7 +45,11 @@ class RenderConfig:
     # takes "wavefront", since B6 has no NEE).  The JAX package's retired
     # experiments "mx" and "mx2" are not ported (ROADMAP A10).
     large_scene_mode: str = "wavefront"
-    # per-wave closest-hit engine of the wavefront: "slim", kernel B2
-    # (csrc/brick_trace.cu).  "slim[N]", "slimg[N]", "slim2" and "pairs[N]"
-    # are not ported (ROADMAP A9).
+    # per-wave closest-hit engine of the wavefront (ops/wavefront.py::
+    # parse_engine): "slim", kernel B2 (csrc/brick_trace.cu; "slim[N]" and
+    # "slimg[N]" run it too: a per-ray walk has no packet to size); "slim2",
+    # kernel B4, the walk that fetches the next leaf before it tests this
+    # one (csrc/brick_trace_slim2.cu); "pairs[N]", kernel B5, visit lists
+    # from torch ops for packets of N x 128 rays, default 32
+    # (ops/pairtrace.py, csrc/pair_trace.cu).
     wavefront_trace: str = "slim"

@@ -8,8 +8,8 @@
 * the plain integrator on the large scene, at the criterion of
   tests/test_torch_integrator.py;
 * the sort keys, the wave layout and the winner-record epilogue, exactly or
-  to float32 rounding; sample splits and reproducibility; the engines that
-  are not ported.
+  to float32 rounding; sample splits and reproducibility; the engine names
+  (every one renders) and their parser.
 
 The JAX side is jitted, and XLA contracts a*b+c into FMAs where torch
 rounds twice, so a ray through a shared triangle edge (|u + v - 1| near
@@ -46,7 +46,7 @@ from pathtracer_cuda_interactive_tpu_torch.models.device_scene import (
     DeviceScene)
 from pathtracer_cuda_interactive_tpu_torch.models.scenepack import load_scene
 from pathtracer_cuda_interactive_tpu_torch.ops import (
-    brickkernel, integrator, trace, wavefront)
+    brickkernel, integrator, pairtrace, trace, wavefront)
 from pathtracer_cuda_interactive_tpu_torch.ops.camera import (
     Camera, camera_ray_data)
 from pathtracer_cuda_interactive_tpu_torch.ops.vec import Vec3
@@ -298,13 +298,55 @@ def test_cpu_wave_launches_no_kernel(blob):
 @pytest.mark.parametrize("engine", ["slim8", "slimg", "slimg4", "slim2",
                                     "pairs", "pairs8"])
 def test_unported_engines_raise(blob, engine):
+    """Every engine name of the JAX package renders (the name is from when
+    all but "slim" raised): "slim[N]" and "slimg[N]" run kernel B2's walk,
+    and "slim2" (kernel B4) finds the same winners, so their images equal
+    "slim"'s bit for bit; "pairs[N]" (kernel B5) may differ where two
+    triangles tie at an equal t."""
     bricks, cd = blob[4], blob[5]
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        wavefront.render_samples_wavefront(bricks, cd, W, H, 0, 1,
-                                           trace=engine)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    ref = wavefront.render_samples_wavefront(bricks, cd, W, H, 0, 1,
+                                             max_depth=3)
+    got = wavefront.render_samples_wavefront(bricks, cd, W, H, 0, 1,
+                                             max_depth=3, trace=engine)
+    if engine.startswith("pairs"):
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+    else:
+        assert torch.equal(got, ref)
+    renderer = ProgressiveRenderer.from_xml(
+        BLOB_BOX, RenderConfig(wavefront_trace=engine, max_depth=2),
+        width=W, height=H, device="cpu")
+    renderer.step()
+    assert renderer.mode == "wavefront" and renderer.waves == 2
+    assert np.isfinite(renderer.hdr()).all() and renderer.hdr().mean() > 0.0
+
+
+@pytest.mark.parametrize("name,parsed", [
+    ("slim", ("slim", 0)), ("slim8", ("slim", 8)), ("slim20", ("slim", 20)),
+    ("slimg", ("slimg", 8)), ("slimg4", ("slimg", 4)), ("slim2", ("slim2", 0)),
+    ("pairs", ("pairs", 32)), ("pairs8", ("pairs", 8))])
+def test_parse_engine(name, parsed):
+    assert wavefront.parse_engine(name) == parsed
+    tracer = wavefront.engine_tracer(name)
+    if parsed[0] == "pairs":
+        assert tracer.func is pairtrace.trace_wave_pairs
+        assert tracer.keywords == {"packet_rows": parsed[1]}
+    elif parsed[0] == "slim2":
+        assert tracer is wavefront.trace_wave_slim2
+    else:
+        assert tracer is wavefront.trace_wave_slim
+
+
+@pytest.mark.parametrize("name", ["slim0", "pairs0", "slimg0", "pairs-1",
+                                  "slimx", "slim2x", "pairs 8", "", "Slim"])
+def test_bad_engine_names_are_value_errors(blob, name):
+    with pytest.raises(ValueError, match="engine"):
+        wavefront.parse_engine(name)
+    with pytest.raises(ValueError, match="engine"):
+        wavefront.render_samples_wavefront(blob[4], blob[5], W, H, 0, 1,
+                                           trace=name)
+    with pytest.raises(ValueError, match="engine"):
         ProgressiveRenderer.from_xml(BLOB_BOX,
-                                     RenderConfig(wavefront_trace=engine),
+                                     RenderConfig(wavefront_trace=name),
                                      width=W, height=H, device="cpu")
 
 
