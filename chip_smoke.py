@@ -16,6 +16,8 @@ JAX, and fails with a non-zero exit code if any phase fails:
 2d. the builds of csrc/brick_trace_slim2.cu (kernel B4) and
    csrc/pair_trace.cu (kernel B5), in the same parallel build, with their
    times and ptxas reports;
+2e. the build of csrc/mx2_trace.cu (kernel B7), the sixth source of the
+   same parallel build, with its time and ptxas report;
 3. the megakernel against its plain torch version on the card, on the
    in-repo sphere, Cornell-box and point-light scenes at 160x120 and on the
    Cornell box at the main path's 640x480, each at depth 4 (shallow
@@ -46,6 +48,21 @@ JAX, and fails with a non-zero exit code if any phase fails:
    against B2 t bit for bit on every ray and slot on all but 1e-4; the
    renders; timed, with the pairs per packet, and the cull and sort (torch
    ops) timed apart from the kernel;
+3g. kernel B7 (the superbrick packet trace of large_scene_mode "mx2") on
+   the primary and first-bounce waves of the same two 640x480, 2-sample
+   renders through render_samples_mx2 (its own waves: the "mx2" path sorts
+   a bounce wave by "mort_oct", the wavefront by "sig_mort"): t, slot and
+   the four counters equal to its plain version bit for bit; against kernel B2, t within rtol 1e-4 on all but
+   1e-3 of the rays (the Plucker form rounds otherwise; slots are not
+   compared, the two sets order triangles differently); whole "mx2"
+   renders at 160x120, depth 4 (shallow) and 12 (statistical), NEE off and
+   on, against the same renders through the plain version; B7, B2 on the
+   same rays (in turns) and plain B7 timed on the large scene's "mx2"
+   waves, the cull and sort apart, with the superbricks listed and visited
+   per packet;
+3h. the "mx" path (library products in torch ops, no kernel) at 160x120
+   on blob_box, depth 4 (the criterion of tests/test_mxtrace.py:62-64) and
+   12 (statistical), against the plain integrator;
 4. the small-scene main path: ProgressiveRenderer on the rect Cornell box
    at 640x480, 2 samples per frame, depth 50, on cuda — 30 synced frames
    after warmup, the launch counters, the camera and samples-per-frame
@@ -69,6 +86,17 @@ JAX, and fails with a non-zero exit code if any phase fails:
    traced and no B2 launch, a camera reset, a finite non-flat image that
    meets the statistical criterion against 4b's at the same frame count, a
    PNG, the median frame beside 4b's;
+4g. the large scene through ProgressiveRenderer with
+   RenderConfig(large_scene_mode="mx2"), same shape and frame counts: B7's
+   launches against the waves traced and no launch of another kernel, a
+   camera reset, a finite non-flat image that meets the statistical
+   criterion against 4b's at the same frame count, a PNG, the median frame
+   beside 4b's and 4c's;
+4h. the same scene with large_scene_mode="mx" at 640x480, 2 samples per
+   frame: one synced frame, timed, at depth 4 (a depth-50 frame takes
+   minutes: a bounce packet takes a round for nearly every one of the
+   scene's bricks), no kernel launch, a finite non-flat image that meets
+   the statistical criterion against the wavefront's at that depth;
 5. the offline CLI on cuda.
 
 Its last two lines are a JSON object describing each kernel (with its
@@ -177,6 +205,18 @@ def wave_check(got: np.ndarray, ref: np.ndarray) -> dict:
             "max_abs_err": float(err.max())}
 
 
+def mx_check(got: np.ndarray, ref: np.ndarray) -> dict:
+    """tests/test_mxtrace.py:62-64: fewer than 2e-3 of the elements off by
+    more than 1e-3, and a mean absolute error below 1e-3."""
+    err = np.abs(got - ref)
+    bad = err > 1e-3
+    ok = bad.mean() < 2e-3 and err.mean() < 1e-3
+    return {"criterion": "mx shallow", "ok": bool(ok),
+            "mismatch_share": float(bad.mean()),
+            "mean_abs_err": float(err.mean()),
+            "max_abs_err": float(err.max())}
+
+
 def trace_check(t, slot, ref_t, ref_slot) -> dict:
     """Kernel B2 against its plain version on one wave: slot equal and t
     within rtol 1e-5 on all but at most 1e-4 of the rays (equal-t ties on
@@ -222,6 +262,11 @@ def main(argv=None) -> int:
                          "pathtracer_cuda_interactive_tpu_torch is not "
                          "importable; run this script from the root of a "
                          f"checkout of the repository ({exc})")
+    from pathtracer_cuda_interactive_tpu_torch.experiments import (
+        mx2, mxtrace)
+    from pathtracer_cuda_interactive_tpu_torch.experiments.mx2set import (
+        MX2Set)
+    from pathtracer_cuda_interactive_tpu_torch.experiments.mxset import MXSet
     from pathtracer_cuda_interactive_tpu_torch.io.xml_scene import (
         parse_scene)
     from pathtracer_cuda_interactive_tpu_torch.models.bricks import BrickSet
@@ -260,28 +305,31 @@ def main(argv=None) -> int:
           f"device 0: {kind}")
     results["card"] = card
 
-    # -- 2, 2b, 2c and 2d. the kernel builds: one nvcc per source, started
-    # together
+    # -- 2, 2b, 2c, 2d and 2e. the kernel builds: one nvcc per source,
+    # started together
     t0 = time.perf_counter()
     built = cuda_build.build_all([mk.SOURCE, wf.SOURCE, bk.SOURCE,
-                                  wf.SLIM2_SOURCE, pt.SOURCE])
+                                  wf.SLIM2_SOURCE, pt.SOURCE, mx2.SOURCE])
     mk.load_library()
     wf.load_library()
     bk.load_library()
     wf.load_slim2_library()
     pt.load_library()
+    mx2.load_library()
     build_s = time.perf_counter() - t0
     print(f"megakernel build {built[mk.SOURCE]:.2f} s, brick_trace build "
           f"{built[wf.SOURCE]:.2f} s, brick_render build "
           f"{built[bk.SOURCE]:.2f} s, brick_trace_slim2 build "
           f"{built[wf.SLIM2_SOURCE]:.2f} s, pair_trace build "
-          f"{built[pt.SOURCE]:.2f} s (in parallel); build+load "
+          f"{built[pt.SOURCE]:.2f} s, mx2_trace build "
+          f"{built[mx2.SOURCE]:.2f} s (in parallel); build+load "
           f"{build_s:.2f} s")
     results.update(build_s=build_s, megakernel_build_s=built[mk.SOURCE],
                    brick_trace_build_s=built[wf.SOURCE],
                    brick_render_build_s=built[bk.SOURCE],
                    brick_trace_slim2_build_s=built[wf.SLIM2_SOURCE],
-                   pair_trace_build_s=built[pt.SOURCE])
+                   pair_trace_build_s=built[pt.SOURCE],
+                   mx2_trace_build_s=built[mx2.SOURCE])
 
     # -- 3. kernel against its plain version on the card ------------------
     def load(name, width, height):
@@ -367,6 +415,21 @@ def main(argv=None) -> int:
 
         wf.render_samples_wavefront(bricks, cd, width, height, 0, SPP,
                                     max_depth=n_waves, tracer=recording)
+        return waves[:n_waves]
+
+    def capture_mx2_waves(mxs, cd, width, height, n_waves):
+        """The first waves of an "mx2" render of SPP samples, as
+        ``capture_waves``: the waves that path launches kernel B7 on (a
+        bounce wave sorted by "mort_oct").  Traced by B7 itself, which 3g
+        then holds to its plain version on these same waves."""
+        waves = []
+
+        def recording(m, org, dirn, tnear):
+            waves.append((org, dirn, tnear))
+            return mx2.trace_wave_mx2(m, org, dirn, tnear)
+
+        mx2.render_samples_mx2(mxs, cd, width, height, 0, SPP,
+                               max_depth=n_waves, tracer=recording)
         return waves[:n_waves]
 
     def compare_waves(bricks, waves, label):
@@ -509,6 +572,77 @@ def main(argv=None) -> int:
                       f"-> {'ok' if res['ok'] else 'FAIL'}")
         return out
 
+    def compare_b7(mxs, bricks, waves, label):
+        """3g: kernel B7 on each wave (of ``capture_mx2_waves``) against its
+        plain version (t, slot and counters bit for bit) and against kernel
+        B2's t on the same rays over the same triangles in a BrickSet (rtol
+        1e-4 on all but 1e-3 of the rays)."""
+        out = []
+        for (org, dirn, tnear), name in zip(waves, ("primary", "bounce 1")):
+            brk, ent, cnt = pt.visit_lists(mxs, org, dirn, tnear, 1)
+            t, slot, seen = mx2.trace_mx2_cuda(mxs, *org, *dirn, tnear, brk,
+                                               ent, cnt, collect_stats=True)
+            b2_t, _ = wf.trace_bricks_cuda(bricks, *org, *dirn, tnear)
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            ref_t, ref_slot, ref_seen = mx2.trace_mx2_plain(
+                mxs, org, dirn, tnear, brk, ent, cnt, collect_stats=True)
+            stop.record()
+            stop.synchronize()
+            vs_plain = float(((t != ref_t) | (slot != ref_slot)).float().mean())
+            vs_b2 = float((~torch.isclose(t, b2_t, rtol=1e-4, atol=0.0))
+                          .float().mean())
+            both = torch.isfinite(t) & torch.isfinite(ref_t)
+            err = float((t[both] - ref_t[both]).abs().max()) if both.any() \
+                else 0.0
+            listed, visited, voted, tested = seen.tolist()
+            packets = int(cnt.numel())
+            res = {"ok": vs_plain == 0.0 and seen.tolist() == ref_seen.tolist()
+                   and vs_b2 <= 1e-3, "scene": label, "wave": name,
+                   "rays": int(t.numel()), "packets": packets,
+                   "mismatch_share": vs_plain, "t_off_share_vs_b2": vs_b2,
+                   "max_abs_err": err, "plain_ms": start.elapsed_time(stop),
+                   "listed": listed, "visited": visited, "voted": voted,
+                   "tested": tested,
+                   "plain_counters": ref_seen.tolist(),
+                   "max_listed": int(cnt.max())}
+            out.append(res)
+            print(f"B7 vs plain {label} {name} wave: {res['rays']} rays in "
+                  f"{packets} packets, mismatch share {vs_plain:.3e}, max abs "
+                  f"err {err:.3e}, counters {seen.tolist()} against "
+                  f"{ref_seen.tolist()}; vs B2: t off on {vs_b2:.3e} of the "
+                  f"rays; per packet {listed / packets:.2f} superbricks "
+                  f"listed (max {res['max_listed']} of {mxs.num_bricks}), "
+                  f"{visited / packets:.2f} visited, "
+                  f"{voted / max(visited, 1):.4f} subs voted in per visit "
+                  f"of {tested / max(visited, 1):.4f} slab-tested "
+                  f"-> {'ok' if res['ok'] else 'FAIL'}")
+        return out
+
+    def mx_renders(label, render, plain_render, shallow):
+        """3g, 3h: whole renders of blob_box at 160x120 through
+        ``render(nee, depth)`` against ``plain_render(nee, depth)``, at the
+        criterion ``shallow`` for depth 4 and statistically for depth 12."""
+        out = []
+        for nee in (False, True):
+            for depth, check in ((4, shallow), (12, deep_check)):
+                got, ref = render(nee, depth), plain_render(nee, depth)
+                torch.cuda.synchronize()
+                res = check(got.cpu().numpy(), ref.cpu().numpy())
+                res.update(path=label, scene="blob_box", nee=nee,
+                           width=SMALL_W, height=SMALL_H, spp=SPP,
+                           depth=depth)
+                out.append(res)
+                print(f"{label} vs plain blob_box nee={nee} "
+                      f"{SMALL_W}x{SMALL_H} depth {depth} "
+                      f"({res['criterion']}): mismatch share "
+                      f"{res['mismatch_share']:.3e}, max abs err "
+                      f"{res['max_abs_err']:.3e}, mean abs err "
+                      f"{res['mean_abs_err']:.3e} "
+                      f"-> {'ok' if res['ok'] else 'FAIL'}")
+        return out
+
     ENGINES = ("slim2", "pairs", "pairs8")
 
     blob_pack, blob_parsed = load_scene(str(SCENES_DIR / "blob_box.xml"))
@@ -520,6 +654,10 @@ def main(argv=None) -> int:
     b3_checks = compare_full(blob, blob_waves, "blob_box")
     engine_checks = {engine: compare_engine(blob, blob_waves, "blob_box",
                                             engine) for engine in ENGINES}
+    blob_mx2 = MX2Set.from_pack(blob_pack).to(dev)
+    b7_checks = compare_b7(
+        blob_mx2, blob, capture_mx2_waves(blob_mx2, cd, MAIN_W, MAIN_H, 2),
+        "blob_box")
     del blob_waves
     b2_renders = []
     cd = torch.from_numpy(camera_ray_data(blob_cam, SMALL_W, SMALL_H)).to(dev)
@@ -546,13 +684,34 @@ def main(argv=None) -> int:
                  for depth, check in ((4, wave_check), (12, deep_check))]
     engine_render_checks = {engine: engine_renders(blob, cd, engine)
                             for engine in ENGINES}
-    del blob
+    b7_renders = mx_renders(
+        "mx2 B7",
+        lambda nee, depth: mx2.render_samples_mx2(
+            blob_mx2, cd, SMALL_W, SMALL_H, 0, SPP, max_depth=depth,
+            nee=nee),
+        lambda nee, depth: mx2.render_samples_mx2(
+            blob_mx2, cd, SMALL_W, SMALL_H, 0, SPP, max_depth=depth,
+            nee=nee, tracer=mx2.trace_wave_mx2_plain), wave_check)
+    # 3h: the "mx" path against the plain integrator
+    blob_mx = MXSet.from_pack(blob_pack).to(dev)
+    blob_scene = DeviceScene.from_pack(blob_pack).to(dev)
+    mx_render_checks = mx_renders(
+        "mx",
+        lambda nee, depth: mxtrace.render_samples_mx(
+            blob_mx, cd, SMALL_W, SMALL_H, 0, SPP, max_depth=depth,
+            nee=nee),
+        lambda nee, depth: integrator.render_samples(
+            blob_scene, cd, SMALL_W, SMALL_H, 0, SPP, max_depth=depth,
+            nee=nee), mx_check)
+    del blob, blob_mx2, blob_mx, blob_scene
     require_agreement("B2", b2_checks + b2_renders)
     require_agreement("B3", b3_checks)
     require_agreement("B6", b6_checks)
     for engine in ENGINES:
         require_agreement(engine, engine_checks[engine]
                           + engine_render_checks[engine])
+    require_agreement("B7", b7_checks + b7_renders)
+    require_agreement("mx", mx_render_checks)
 
     # the large scene of the main path: blob_box subdivided three levels
     t0 = time.perf_counter()
@@ -585,8 +744,22 @@ def main(argv=None) -> int:
         engine_checks[engine] += compare_engine(big, big_waves, "blob_box x3",
                                                 engine)
         require_agreement(engine, engine_checks[engine])
+    t0 = time.perf_counter()
+    big_mx2 = MX2Set.from_pack(big_pack).to(dev)
+    torch.cuda.synchronize()
+    mx2_build_s = time.perf_counter() - t0
+    print(f"large scene as an MX2Set: {big_mx2.num_bricks} superbricks, "
+          f"{big_mx2.nbytes} bytes (coeff {big_mx2.coeff.numel() * 4}); "
+          f"host build and upload {mx2_build_s:.2f} s")
+    mx2_waves = capture_mx2_waves(big_mx2, cd, MAIN_W, MAIN_H, 2)
+    if mx2_waves[0][0].x.numel() != MAIN_W * MAIN_H * SPP:
+        raise SystemExit("chip_smoke: the captured mx2 primary wave is not "
+                         "the main path's")
+    b7_checks += compare_b7(big_mx2, big, mx2_waves, "blob_box x3")
+    require_agreement("B7", b7_checks)
     wave_ms = {}
-    for (org, dirn, tnear), name in zip(big_waves, ("primary", "bounce 1")):
+    for (org, dirn, tnear), mx2_wave, name in zip(big_waves, mx2_waves,
+                                                  ("primary", "bounce 1")):
         # B2 and its plain version in turns, B3 between, B3's plain once
         runs = {"kernel": (lambda: wf.trace_bricks_cuda(big, *org, *dirn,
                                                         tnear), 20),
@@ -628,9 +801,21 @@ def main(argv=None) -> int:
                                                 ent, cnt, rows * pt.LANES))
             runs[engine + "_lists"] = (
                 lambda rows=rows: pt.visit_lists(big, org, dirn, tnear, rows))
+        # 3g: B7 likewise, over the superbrick lists of 128-ray packets, on
+        # the "mx2" path's own wave (the same rays for the primary wave, a
+        # "mort_oct"-sorted wave for the bounce), with B2 on those rays
+        m_org, m_dirn, m_tnear = mx2_wave
+        sb_lists = pt.visit_lists(big_mx2, m_org, m_dirn, m_tnear, 1)
+        runs["mx2"] = lambda: mx2.trace_mx2_cuda(big_mx2, *m_org, *m_dirn,
+                                                 m_tnear, *sb_lists)
+        runs["mx2_lists"] = lambda: pt.visit_lists(big_mx2, m_org, m_dirn,
+                                                   m_tnear, 1)
+        runs["b2_mx2_wave"] = lambda: wf.trace_bricks_cuda(big, *m_org,
+                                                           *m_dirn, m_tnear)
         timings = {which: [] for which in runs}
-        for which in ("b2", "slim2", "pairs", "pairs8", "pairs_lists",
-                      "pairs8_lists", "pairs8", "pairs", "slim2", "b2"):
+        for which in ("b2", "slim2", "pairs", "pairs8", "b2_mx2_wave", "mx2",
+                      "pairs_lists", "pairs8_lists", "mx2_lists", "mx2",
+                      "b2_mx2_wave", "pairs8", "pairs", "slim2", "b2"):
             timings[which].append(cuda_ms(runs[which], 10))
         row["engines"] = {which: statistics.median(v)
                           for which, v in timings.items()}
@@ -650,7 +835,12 @@ def main(argv=None) -> int:
                   f"cull + sort {e[engine + '_lists']:.4f} ms; "
                   f"{ppp['packets']} packets, {ppp['mean']:.2f} pairs per "
                   f"packet (max {ppp['max']} of {big.num_bricks} bricks)")
-        del lists, runs
+        print(f"B7 timing blob_box x3 {MAIN_W}x{MAIN_H} {name} wave of the "
+              f"mx2 path ({m_org.x.numel()} rays, sorted by mort_oct): kernel "
+              f"{e['mx2']:.4f} ms {timings['mx2']} beside B2 on the same "
+              f"rays {e['b2_mx2_wave']:.4f} ms {timings['b2_mx2_wave']} in "
+              f"turns, cull + sort {e['mx2_lists']:.4f} ms")
+        del lists, sb_lists, runs
     for engine in ENGINES:
         for check in engine_checks[engine]:
             if check["scene"] == "blob_box x3":
@@ -658,7 +848,12 @@ def main(argv=None) -> int:
                     check["plain_ms"]
                 print(f"{engine} plain version blob_box x3 {check['wave']} "
                       f"wave: {check['plain_ms']:.2f} ms (one run)")
-    del big_waves
+    for check in b7_checks:
+        if check["scene"] == "blob_box x3":
+            wave_ms[check["wave"]]["mx2_plain_ms"] = check["plain_ms"]
+            print(f"B7 plain version blob_box x3 {check['wave']} wave: "
+                  f"{check['plain_ms']:.2f} ms (one run)")
+    del big_waves, mx2_waves
     b2_err = max(c["max_abs_err"] for c in b2_checks)
     b3_err = max(c["max_abs_err"] for c in b3_checks)
 
@@ -686,6 +881,21 @@ def main(argv=None) -> int:
         + 8 * wave_ms["bounce 1"]["pairs_per_packet"]["pairs"]["mean"]
         * wave_ms["bounce 1"]["pairs_per_packet"]["pairs"]["packets"],
         wave_ops)
+    # B7 reads the slabs' rows that carry coefficients (mx2.FEATURES of a
+    # sub's 16) and the sub boxes once, its packets' lists (a superbrick id
+    # and a bound per listed entry) and the rays, and writes (t, slot).
+    # Operations, from its counters on its own bounce wave: per ray a slab
+    # test for each valid sub of a superbrick visited, and for each sub
+    # voted in a product of depth mx2.FEATURES into 128 rows (FEATURES
+    # multiplications and FEATURES - 1 additions a row).
+    b7_wave = next(c for c in b7_checks if c["scene"] == "blob_box x3"
+                   and c["wave"] == "bounce 1")
+    b7_bound = bound(
+        (big_mx2.num_bricks * 16 * mx2.FEATURES * 128
+         + big_mx2.subbox.numel()) * 4
+        + 8 * b7_wave["listed"] + b7_wave["rays"] * 32,
+        128 * (b7_wave["tested"] * BOX_OPS
+               + b7_wave["voted"] * (2 * mx2.FEATURES - 1) * 128))
 
     # -- 3d. kernel B6 on the large scene: agreement at depth 4, and times
     # at the main path's shape
@@ -731,7 +941,8 @@ def main(argv=None) -> int:
 
     counters = (mk.megakernel_cuda, wf.trace_bricks_cuda,
                 wf.trace_bricks_full_cuda, bk.render_bricks_cuda,
-                wf.trace_bricks_slim2_cuda, pt.trace_pairs_cuda)
+                wf.trace_bricks_slim2_cuda, pt.trace_pairs_cuda,
+                mx2.trace_mx2_cuda)
 
     def zero_counts():
         for wrapper in counters:
@@ -754,7 +965,7 @@ def main(argv=None) -> int:
     if launches != warmup + frames or any(others):
         raise SystemExit(f"chip_smoke: {launches} kernel launches for "
                          f"{warmup + frames} frames, {others} launches of "
-                         f"B2, B3, B6, B4, B5")
+                         f"B2, B3, B6, B4, B5, B7")
     median_ms = statistics.median(frame_ms)
     # the highest percentile with ten frames beyond it
     tail_ms = sorted(frame_ms)[frames - 11]
@@ -823,7 +1034,7 @@ def main(argv=None) -> int:
     others = [w.launches for w in counters if w is not wf.trace_bricks_cuda]
     if b2_launches != waves or waves < warmup + big_frames or any(others):
         raise SystemExit(f"chip_smoke: {b2_launches} B2 launches for {waves} "
-                         f"waves, {others} launches of B1, B3, B6, B4, B5 on "
+                         f"waves, {others} launches of B1, B3, B6, B4, B5, B7 on "
                          f"the large scene")
     big_median = statistics.median(big_ms)
     big_msamples = MAIN_W * MAIN_H * SPP / (big_median * 1e-3) / 1e6
@@ -884,7 +1095,7 @@ def main(argv=None) -> int:
             or bricks_renderer.waves != 0:
         raise SystemExit(f"chip_smoke: {b6_launches} B6 launches for "
                          f"{warmup + big_frames} frames, {others} launches "
-                         f"of B1, B2, B3, B4, B5 in bricks mode")
+                         f"of B1, B2, B3, B4, B5, B7 in bricks mode")
     bricks_median = statistics.median(bricks_ms)
     bricks_msamples = MAIN_W * MAIN_H * SPP / (bricks_median * 1e-3) / 1e6
     print(f"bricks path {MAIN_W}x{MAIN_H} spf {SPP} depth 50: {big_frames} "
@@ -925,12 +1136,16 @@ def main(argv=None) -> int:
                    bricks_image_mean=float(bricks_img.mean()))
     del bricks_renderer
 
-    # -- 4e, 4f. the large scene through the opt-in engines, same shape -----
-    def drive_engine(engine, wrapper, kernel):
-        config = RenderConfig(wavefront_trace=engine)
-        renderer = ProgressiveRenderer(big, big_cam, MAIN_W, MAIN_H, config,
+    # -- 4e, 4f, 4g. the large scene through the opt-in engines and through
+    # "mx2", same shape
+    def drive_engine(scene, config, mode, wrapper, kernel):
+        """Drive ``scene`` through ProgressiveRenderer with ``config``,
+        which must take ``mode`` and launch only ``wrapper``'s kernel, once
+        per wave."""
+        engine = config.wavefront_trace if mode == "wavefront" else mode
+        renderer = ProgressiveRenderer(scene, big_cam, MAIN_W, MAIN_H, config,
                                        device="cuda")
-        if renderer.mode != "wavefront":
+        if renderer.mode != mode:
             raise SystemExit(f"chip_smoke: {engine} took {renderer.mode}")
         zero_counts()
         for _ in range(warmup):
@@ -963,12 +1178,14 @@ def main(argv=None) -> int:
               f"{MAIN_W * MAIN_H * SPP / (median * 1e-3) / 1e6:.4f} "
               f"Msamples/s, {renderer.waves / (warmup + big_frames):.2f} "
               f"waves per frame; {kernel} launches {launches} for "
-              f"{renderer.waves} waves, no B2 launch; against the default "
-              f"engine's image after {renderer.sample_count} spp: mismatch "
+              f"{renderer.waves} waves, no launch of another kernel; "
+              f"against the default engine's image after "
+              f"{renderer.sample_count} spp: mismatch "
               f"share {against['mismatch_share']:.3e}, mean abs err "
               f"{against['mean_abs_err']:.3e}; beside the default engine's "
               f"median {big_median:.4f} ms in this call "
-              f"({median / big_median:.2f} times as long)")
+              f"({median / big_median:.2f} times as long) and bricks mode's "
+              f"{bricks_median:.4f} ms")
         path = mk.BUILD_DIR / f"chip_smoke_blob_box_x3_{engine}.png"
         renderer.save_png(str(path))
         cam = renderer.camera
@@ -988,12 +1205,68 @@ def main(argv=None) -> int:
             "vs_default_engine": against}
         return launches, path
 
-    b4_launches, slim2_png = drive_engine("slim2", wf.trace_bricks_slim2_cuda,
-                                          "B4")
-    b5_launches, pairs_png = drive_engine("pairs", pt.trace_pairs_cuda, "B5")
+    b4_launches, slim2_png = drive_engine(
+        big, RenderConfig(wavefront_trace="slim2"), "wavefront",
+        wf.trace_bricks_slim2_cuda, "B4")
+    b5_launches, pairs_png = drive_engine(
+        big, RenderConfig(wavefront_trace="pairs"), "wavefront",
+        pt.trace_pairs_cuda, "B5")
+    del big_mx2
+    b7_launches, mx2_png = drive_engine(
+        big_pack, RenderConfig(large_scene_mode="mx2"), "mx2",
+        mx2.trace_mx2_cuda, "B7")
     results.update(engine_checks=engine_checks,
-                   engine_render_checks=engine_render_checks)
-    del big
+                   engine_render_checks=engine_render_checks,
+                   b7_checks=b7_checks, b7_renders=b7_renders,
+                   mx_render_checks=mx_render_checks)
+
+    # -- 4h. the "mx" path (torch ops, no kernel), one frame at depth 4 -----
+    mx_depth = 4
+    mx_renderer = ProgressiveRenderer(
+        big_pack, big_cam, MAIN_W, MAIN_H,
+        RenderConfig(large_scene_mode="mx", max_depth=mx_depth),
+        device="cuda")
+    if mx_renderer.mode != "mx":
+        raise SystemExit(f"chip_smoke: mx mode took {mx_renderer.mode}")
+    zero_counts()
+    mx_renderer.step(sync=True)
+    mx_frame_ms = mx_renderer.frame_ms
+    if any(w.launches for w in counters):
+        raise SystemExit("chip_smoke: the mx path launched a kernel: "
+                         f"{[w.launches for w in counters]}")
+    mx_img = mx_renderer.hdr()
+    wf_img = (wf.render_samples_wavefront(big, cd, MAIN_W, MAIN_H, 0, SPP,
+                                          max_depth=mx_depth) / SPP)
+    against = deep_check(mx_img, wf_img.cpu().numpy())
+    if not (np.isfinite(mx_img).all() and mx_img.mean() > 0
+            and mx_img.std() > 0 and against["ok"]):
+        raise SystemExit(f"chip_smoke: the mx image is not finite and "
+                         f"non-flat or disagrees with the wavefront's: "
+                         f"{against}")
+    mx_rounds = mx_renderer.stats["rounds"]
+    mx_products = mx_renderer.stats["products"]
+    mx_png = mk.BUILD_DIR / "chip_smoke_blob_box_x3_mx.png"
+    mx_renderer.save_png(str(mx_png))
+    print(f"mx path {MAIN_W}x{MAIN_H} spf {SPP} at depth {mx_depth}, not 50 "
+          f"(a depth-50 frame traces these waves and 15 more): one synced "
+          f"frame {mx_frame_ms:.1f} ms, "
+          f"{mx_renderer.waves} waves of at most "
+          f"{mxtrace.MX_MAX_RAYS_PER_WAVE} rays in "
+          f"{mx_renderer.scene.num_bricks} bricks, "
+          f"{mx_rounds / mx_renderer.waves:.1f} rounds per wave and "
+          f"{mx_products} products of a packet with a brick in all, no "
+          f"kernel launch; "
+          f"against the wavefront's image at that depth: mismatch share "
+          f"{against['mismatch_share']:.3e}, mean abs err "
+          f"{against['mean_abs_err']:.3e}; beside the default engine's "
+          f"depth-50 median {big_median:.4f} ms")
+    results["mx_path"] = {"depth": mx_depth, "frame_ms": mx_frame_ms,
+                          "waves": mx_renderer.waves,
+                          "rays": mx_renderer.stats["rays"],
+                          "rounds": mx_rounds, "products": mx_products,
+                          "bricks": mx_renderer.scene.num_bricks,
+                          "vs_wavefront": against}
+    del big, mx_renderer
 
     # -- 4d. the kernel-stats entry point (kernel B3) ----------------------
     zero_counts()
@@ -1019,7 +1292,8 @@ def main(argv=None) -> int:
     if args.out:
         out = Path(args.out)
         out.mkdir(parents=True, exist_ok=True)
-        for path in (png, big_png, bricks_png, slim2_png, pairs_png, cli_png):
+        for path in (png, big_png, bricks_png, slim2_png, pairs_png, mx2_png,
+                     mx_png, cli_png):
             shutil.copy(path, out / path.name)
         (out / "chip_smoke_results.json").write_text(
             json.dumps(results, indent=1))
@@ -1100,6 +1374,23 @@ def main(argv=None) -> int:
         "lists_ms": wave_ms["bounce 1"]["engines"]["pairs_lists"],
         "plain_ms": wave_ms["bounce 1"]["pairs_plain_ms"],
         **pair_bound,
+        "library_ms": None,
+    }, {
+        # launches: the "mx2" path (4g); times: that path's sorted
+        # first-bounce wave ("mort_oct") in packets of 128 rays, the kernel
+        # alone (lists_ms: the cull and sort before
+        # it).  No one PyTorch call computes the function: a batched product
+        # would be one step of it, without the lists, votes and tie rules.
+        "name": "mx2_trace",
+        "route": "cuda",
+        "source": str(mx2.SOURCE.resolve().relative_to(root)),
+        "replaces": "pathtracer_cuda_interactive_tpu/experiments/mx2.py:69",
+        "launches": b7_launches,
+        "max_abs_err": max(c["max_abs_err"] for c in b7_checks),
+        "ms": wave_ms["bounce 1"]["engines"]["mx2"],
+        "lists_ms": wave_ms["bounce 1"]["engines"]["mx2_lists"],
+        "plain_ms": wave_ms["bounce 1"]["mx2_plain_ms"],
+        **b7_bound,
         "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {

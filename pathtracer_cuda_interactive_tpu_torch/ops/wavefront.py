@@ -472,13 +472,10 @@ def _sphere_tmin(sph_rows, S: int, org: Vec3, dirn: Vec3, tnear: float, t):
     return t
 
 
-def _record_from_slots(bricks: BrickSet, t, slot, org: Vec3, dirn: Vec3,
-                       tnear: float):
-    """The 16-channel hit record of the JAX package's full trace kernel from
-    B2's (t, slot): one 32-float gather per ray of the winning triangle's
-    record, a Moller-Trumbore re-solve for (u, v), then the resident
-    spheres.  Every ray of the table is live, so there is no active mask."""
-    rows = slot_rows(bricks, slot)
+def _solve_uv(rows, org: Vec3, dirn: Vec3):
+    """Barycentric (u, v) of each ray on the triangle of its 32-float record
+    ``rows`` [m, 32]: one Moller-Trumbore solve (0 / 1 where the ray is
+    parallel to the triangle)."""
     gv = lambda j: Vec3(rows[:, j], rows[:, j + 1], rows[:, j + 2])
     p0, e1, e2 = gv(1), gv(4), gv(7)
     pv = cross(dirn, e2)
@@ -488,11 +485,20 @@ def _record_from_slots(bricks: BrickSet, t, slot, org: Vec3, dirn: Vec3,
     u = dot(tvec, pv) / det_s
     qv = cross(tvec, e1)
     v = dot(dirn, qv) / det_s
+    return u, v
+
+
+def _record_from_rows(rows, u, v, t, slot, sph, S: int, org: Vec3,
+                      dirn: Vec3, tnear: float):
+    """The 16-channel hit record of a wave from each ray's winning triangle
+    (its record ``rows`` [m, 32], barycentrics, t and slot, -1 = miss), with
+    the ``S`` resident spheres of table ``sph`` folded in after the
+    triangles by a strict ``ts < t``, so a triangle wins an equal-t tie.
+    Every ray of the table is live, so there is no active mask."""
     ns, pos, mt, alb, mp, em, emit = triangle_record(rows, u, v)
     t = torch.where(slot >= 0, t, INF)
 
-    sph = bricks.sph_rows
-    for j in range(bricks.num_spheres):
+    for j in range(S):
         c = Vec3(sph[j, 1], sph[j, 2], sph[j, 3])
         ts, hit = intersect_sphere(c, sph[j, 4], org, dirn, tnear, t)
         closer = hit & (ts < t)
@@ -509,6 +515,18 @@ def _record_from_slots(bricks: BrickSet, t, slot, org: Vec3, dirn: Vec3,
         emit = torch.where(closer, sph[j, 27], emit)
     return (t, ns.x, ns.y, ns.z, pos.x, pos.y, pos.z, mt,
             alb.x, alb.y, alb.z, mp, em.x, em.y, em.z, emit)
+
+
+def _record_from_slots(bricks: BrickSet, t, slot, org: Vec3, dirn: Vec3,
+                       tnear: float):
+    """The 16-channel hit record of the JAX package's full trace kernel from
+    B2's (t, slot): one 32-float gather per ray of the winning triangle's
+    record, a Moller-Trumbore re-solve for (u, v), then the resident
+    spheres."""
+    rows = slot_rows(bricks, slot)
+    u, v = _solve_uv(rows, org, dirn)
+    return _record_from_rows(rows, u, v, t, slot, bricks.sph_rows,
+                             bricks.num_spheres, org, dirn, tnear)
 
 
 def _material(rec) -> brdf.MatLookup:
@@ -609,11 +627,17 @@ def _sample_index(sample_start: int, samp: torch.Tensor) -> torch.Tensor:
     return torch.where(s >= 2 ** 31, s - 2 ** 32, s).to(torch.int32)
 
 
-def _render_chunk(bricks: BrickSet, cam_data, width: int, height: int,
+def _render_chunk(scene, cam_data, width: int, height: int,
                   pix_slots, sample_start: int, num_samples: int, seed: int,
                   max_depth: int, rr_start_depth: int, sort_mode: str,
-                  light_rows, lo, inv_extent, tracer, stats: dict):
-    """Radiance sum [H, W, 3] of samples sample_start .. + num_samples."""
+                  light_rows, lo, inv_extent, tracer, record, stats: dict):
+    """Radiance sum [H, W, 3] of samples sample_start .. + num_samples.
+    ``scene`` is a BrickSet or one of the experiments' sets: anything with
+    the background, ``sph_rows`` and ``num_spheres`` (and ``coarse_boxes``
+    for the "sig_mort" key).  ``tracer(scene, org, dirn, tnear)`` returns a
+    wave's closest triangle hits as a tuple whose first entry is t, and
+    ``record(scene, *hit, org, dirn, tnear)`` makes the 16-channel record
+    of them."""
     dev = cam_data.device
     R = width * height
     n_slots = int(pix_slots.numel())
@@ -633,13 +657,13 @@ def _render_chunk(bricks: BrickSet, cam_data, width: int, height: int,
     n = int(pix.numel())
     T = Vec3.full((n,), (1.0, 1.0, 1.0), device=dev)
     L = Vec3.zeros((n,), device=dev)
-    bg = Vec3(bricks.bg_r, bricks.bg_g, bricks.bg_b)
+    bg = Vec3(scene.bg_r, scene.bg_g, scene.bg_b)
     out = torch.zeros((num_samples, R, 3), dtype=torch.float32, device=dev)
 
     def trace(o, d, tnear):
         stats["waves"] = stats.get("waves", 0) + 1
         stats["rays"] = stats.get("rays", 0) + int(o.x.numel())
-        return tracer(bricks, o, d, tnear)
+        return tracer(scene, o, d, tnear)
 
     def shadow_t(sorg, sdir, mask):
         ts = torch.full(mask.shape, INF, dtype=torch.float32, device=dev)
@@ -647,8 +671,8 @@ def _render_chunk(bricks: BrickSet, cam_data, width: int, height: int,
         if idx.numel():
             so = Vec3(*(c[idx] for c in sorg))
             sd = Vec3(*(c[idx] for c in sdir))
-            st, _ = trace(so, sd, SECONDARY_TNEAR)
-            ts[idx] = _sphere_tmin(bricks.sph_rows, bricks.num_spheres, so,
+            st = trace(so, sd, SECONDARY_TNEAR)[0]
+            ts[idx] = _sphere_tmin(scene.sph_rows, scene.num_spheres, so,
                                    sd, SECONDARY_TNEAR, st)
         return ts
 
@@ -660,7 +684,7 @@ def _render_chunk(bricks: BrickSet, cam_data, width: int, height: int,
                     key = _sort_key(org, dirn, lo, inv_extent)
                 else:
                     key = _sig_key(org, dirn, lo, inv_extent,
-                                   bricks.coarse_boxes)
+                                   scene.coarse_boxes)
                 perm = torch.sort(key, stable=True).indices
                 org = Vec3(*(c[perm] for c in org))
                 dirn = Vec3(*(c[perm] for c in dirn))
@@ -669,9 +693,9 @@ def _render_chunk(bricks: BrickSet, cam_data, width: int, height: int,
                 state, pix, samp = state[perm], pix[perm], samp[perm]
         tnear = 0.0 if depth == 0 else SECONDARY_TNEAR
         with record_function("wavefront.trace"):
-            t, slot = trace(org, dirn, tnear)
+            hit = trace(org, dirn, tnear)
         with record_function("wavefront.shade"):
-            rec = _record_from_slots(bricks, t, slot, org, dirn, tnear)
+            rec = record(scene, *hit, org, dirn, tnear)
             if light_rows is not None:
                 L = L + _nee_term(rec, dirn, T, light_rows, shadow_t)
             org, dirn, T, L, active, state = _shade(
@@ -691,6 +715,62 @@ def _render_chunk(bricks: BrickSet, cam_data, width: int, height: int,
             L = Vec3(*(c[live] for c in L))
             state, pix, samp = state[live], pix[live], samp[live]
     return out.sum(dim=0).reshape(height, width, 3)
+
+
+def render_waves(scene, cam_data: torch.Tensor, width: int, height: int,
+                 sample_start: int, num_samples: int, seed: int,
+                 max_depth: int, rr_start_depth: int, sort_mode: str,
+                 nee: bool, lo, hi, tracer, record, stats=None,
+                 max_rays: int = MAX_RAYS_PER_WAVE) -> torch.Tensor:
+    """The wave loop under ``render_samples_wavefront`` and the experiments'
+    ``render_samples_mx`` / ``render_samples_mx2``: the radiance SUM of
+    ``num_samples`` passes, [H, W, 3], over a scene whose box is ``lo`` ..
+    ``hi`` (the sort keys' normalization), traced by ``tracer`` and recorded
+    by ``record`` (see ``_render_chunk``).
+
+    At most ``max_rays`` rays go into a wave: sample batches beyond it
+    render in chunks of whole samples, and a frame whose single-sample wave
+    already exceeds the cap is also cut along its slots, in runs of whole
+    32 x 128-slot blocks, whose images add (each pixel lies in one slice).
+    ``stats``, a dict, gets the count of traced
+    waves ("waves") and rays ("rays") added to it."""
+    if sort_mode not in SORT_MODES:
+        raise ValueError(f"unknown sort_mode {sort_mode!r}")
+    if sort_mode == "sig_mort" and not hasattr(scene, "coarse_boxes"):
+        raise ValueError('sort_mode "sig_mort" needs a BrickSet\'s coarse '
+                         f"boxes; {type(scene).__name__} has none")
+    if max_depth < 1:
+        raise ValueError("need max_depth >= 1")
+    dev = cam_data.device
+    if scene.device != dev:
+        raise ValueError(f"scene on {scene.device}, camera on {dev}")
+    stats = {} if stats is None else stats
+    light_rows = None
+    if nee and int(scene.light_pos.shape[0]) > 0:
+        light_rows = torch.cat([scene.light_pos, scene.light_intensity],
+                               dim=1)
+    inv_extent = 1.0 / torch.clamp_min(hi - lo, 1e-12)
+    pix_np, _ = _wave_layout(width, height)
+    pix_slots = torch.from_numpy(pix_np).to(dev)
+    n_slots = int(pix_np.shape[0])
+    gran = 32 * LANES
+    slice_len = n_slots
+    if n_slots > max_rays:
+        slice_len = max(gran, max_rays // gran * gran)
+
+    acc = torch.zeros((height, width, 3), dtype=torch.float32, device=dev)
+    for s0 in range(0, n_slots, slice_len):
+        slots = pix_slots[s0:s0 + slice_len]
+        chunk = max(1, max_rays // int(slots.numel()))
+        done = 0
+        while done < num_samples:
+            ns = min(chunk, num_samples - done)
+            acc += _render_chunk(scene, cam_data, width, height, slots,
+                                 sample_start + done, ns, seed, max_depth,
+                                 rr_start_depth, sort_mode, light_rows, lo,
+                                 inv_extent, tracer, record, stats)
+            done += ns
+    return acc
 
 
 def render_samples_wavefront(brickset: BrickSet, cam_data: torch.Tensor,
@@ -715,37 +795,9 @@ def render_samples_wavefront(brickset: BrickSet, cam_data: torch.Tensor,
     chip smoke passes a plain version to hold a kernel to it).  ``stats``, a dict, gets the count of traced waves
     ("waves") and rays ("rays") added to it."""
     engine = engine_tracer(trace)
-    if sort_mode not in SORT_MODES:
-        raise ValueError(f"unknown sort_mode {sort_mode!r}")
-    if max_depth < 1:
-        raise ValueError("need max_depth >= 1")
-    dev = cam_data.device
-    if brickset.device != dev:
-        raise ValueError(f"bricks on {brickset.device}, camera on {dev}")
-    tracer = tracer or engine
-    stats = {} if stats is None else stats
-    light_rows = None
-    if nee and int(brickset.light_pos.shape[0]) > 0:
-        light_rows = torch.cat([brickset.light_pos,
-                                brickset.light_intensity], dim=1)
     # scene box = the top tree's root node
     root = brickset.top_boxes[0, :6]
-    lo, hi = root[:3], root[3:]
-    inv_extent = 1.0 / torch.clamp_min(hi - lo, 1e-12)
-    pix_np, _ = _wave_layout(width, height)
-    pix_slots = torch.from_numpy(pix_np).to(dev)
-
-    chunk = max(1, MAX_RAYS_PER_WAVE // int(pix_np.shape[0]))
-    acc = None
-    done = 0
-    while done < num_samples:
-        ns = min(chunk, num_samples - done)
-        out = _render_chunk(brickset, cam_data, width, height, pix_slots,
-                            sample_start + done, ns, seed, max_depth,
-                            rr_start_depth, sort_mode, light_rows, lo,
-                            inv_extent, tracer, stats)
-        acc = out if acc is None else acc + out
-        done += ns
-    if acc is None:
-        acc = torch.zeros((height, width, 3), dtype=torch.float32, device=dev)
-    return acc
+    return render_waves(brickset, cam_data, width, height, sample_start,
+                        num_samples, seed, max_depth, rr_start_depth,
+                        sort_mode, nee, root[:3], root[3:], tracer or engine,
+                        _record_from_slots, stats)

@@ -15,9 +15,13 @@ full record, with and without counters), of kernel B2 (the slim walk), of
 kernel B4 (the walk with the deferred leaf: staged through shared memory
 with cp.async, and with an L2 prefetch only) and of kernel B5 (the pair
 lists of 32-row and 8-row packets: the kernel, and the cull and sort in
-torch ops apart), the kernels in turns with B2 before and after; for B5
-the pairs per packet, the share of (block, pair) steps its entry-bound
-early-out skips and the chunks it stages per step; and B3's per-ray
+torch ops apart) and of kernel B7 (the superbrick packet trace of
+large_scene_mode "mx2" over the same triangles as an MX2Set: the kernel, and
+its cull and sort apart), the kernels in turns with B2 before and after; for
+B5 the pairs per packet, the share of (block, pair) steps its entry-bound
+early-out skips and the chunks it stages per step; for B7 the superbricks
+listed and visited per packet of 128 rays, the share of listed visits its
+early-out skips and the subs voted in per visit; and B3's per-ray
 counters: nodes popped, bricks entered and chunk gates passed,
 each as the per-ray mean and max and as the mean over warps (32
 consecutive rays, one warp of the kernels' launch) of the warp's per-ray
@@ -106,6 +110,8 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     from .. import SCENES_DIR
+    from ..experiments import mx2
+    from ..experiments.mx2set import MX2Set
     from ..io.xml_scene import parse_scene
     from ..models.bricks import BrickSet
     from ..models.scenepack import pack_scene
@@ -127,12 +133,18 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     parsed = subdivide_scene(parse_scene(str(SCENES_DIR / "blob_box.xml")),
                              levels=LEVELS)
-    bricks = BrickSet.from_pack(pack_scene(parsed)).to("cuda")
+    pack = pack_scene(parsed)
+    bricks = BrickSet.from_pack(pack).to("cuda")
     print(f"blob_box x{LEVELS}: {bricks.num_bricks} bricks, top depth "
           f"{bricks.top_depth}; host build {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    superbricks = MX2Set.from_pack(pack).to("cuda")
+    print(f"as an MX2Set: {superbricks.num_bricks} superbricks; host build "
+          f"{time.perf_counter() - t0:.2f} s")
     wf.load_library()
     wf.load_slim2_library()
     pt.load_library()
+    mx2.load_library()
     cd = torch.from_numpy(camera_ray_data(Camera.from_parsed(parsed.camera),
                                           WIDTH, HEIGHT)).to("cuda")
     sorted_waves = capture_waves(bricks, cd, WIDTH, HEIGHT, SPF, "sig_mort")
@@ -169,6 +181,21 @@ def main(argv=None) -> int:
                 "max_pairs": int(cnt.max()),
                 "skipped_share": skipped / max(steps, 1),
                 "chunks_per_step": staged / max(steps, 1)}
+        brk, ent, cnt = pt.visit_lists(superbricks, org, dirn, tnear, 1)
+        _, _, seen = mx2.trace_mx2_cuda(superbricks, *org, *dirn, tnear, brk,
+                                        ent, cnt, collect_stats=True)
+        listed, visited, voted, tested = seen.tolist()
+        b7 = {"kernel_ms": _cuda_ms(lambda: mx2.trace_mx2_cuda(
+                  superbricks, *org, *dirn, tnear, brk, ent, cnt)),
+              "lists_ms": _cuda_ms(lambda: pt.visit_lists(
+                  superbricks, org, dirn, tnear, 1)),
+              "packets": int(cnt.numel()),
+              "listed_per_packet": listed / cnt.numel(),
+              "visited_per_packet": visited / cnt.numel(),
+              "max_listed": int(cnt.max()),
+              "skipped_share": 1.0 - visited / max(listed, 1),
+              "subs_per_visit": voted / max(visited, 1),
+              "subs_tested_per_visit": tested / max(visited, 1)}
         b2_again_ms = _cuda_ms(b2)
         _, counts = wf.trace_bricks_full_cuda(bricks, *org, *dirn, tnear,
                                               collect_stats=True)
@@ -177,7 +204,7 @@ def main(argv=None) -> int:
                               "b3_counters_ms": b3_stats_ms, "b2_ms": b2_ms,
                               "b2_again_ms": b2_again_ms, "b4_ms": b4_ms,
                               "b4_prefetch_ms": b4_prefetch_ms,
-                              "b5": pairs, "counters": summary}
+                              "b5": pairs, "b7": b7, "counters": summary}
         print(f"{name} wave, {org.x.numel()} rays: B3 {b3_ms:.4f} ms "
               f"({b3_stats_ms:.4f} with counters), B2 {b2_ms:.4f} ms "
               f"(again {b2_again_ms:.4f}), B4 {b4_ms:.4f} ms staged, "
@@ -189,6 +216,14 @@ def main(argv=None) -> int:
                   f"{p['max_pairs']} of {bricks.num_bricks} bricks), "
                   f"early-out skips {p['skipped_share']:.4f} of the steps, "
                   f"{p['chunks_per_step']:.4f} chunks staged per step")
+        print(f"  B7: kernel {b7['kernel_ms']:.4f} ms, cull + sort "
+              f"{b7['lists_ms']:.4f} ms; {b7['packets']} packets, "
+              f"{b7['listed_per_packet']:.2f} superbricks listed per packet "
+              f"(max {b7['max_listed']} of {superbricks.num_bricks}), "
+              f"{b7['visited_per_packet']:.2f} visited, early-out skips "
+              f"{b7['skipped_share']:.4f} of the listed visits, "
+              f"{b7['subs_per_visit']:.4f} subs voted in per visit of "
+              f"{b7['subs_tested_per_visit']:.4f} slab-tested")
         for key in COUNTERS:
             s = summary[key]
             print(f"  {key} per ray: mean {s['mean']:.4f}, max "

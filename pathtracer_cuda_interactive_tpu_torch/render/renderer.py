@@ -7,16 +7,17 @@ C26/C27 in SURVEY.md): keep a running radiance sum in a device buffer, add
 display, and zero everything when the camera (or the spf setting) changes —
 camera compare with epsilon 1e-5 (main.cu:297-312).
 
-``_render_mode`` picks one of four compute paths, as the JAX package's
+``_render_mode`` picks one of six compute paths, as the JAX package's
 does: the megakernel (ops/megakernel.py) for scenes of at most
 ``MEGAKERNEL_MAX_PRIMS`` primitives; for larger scenes with triangles the
 sorted wavefront (ops/wavefront.py; kernel B2, or B4 or B5 by
-``config.wavefront_trace``) or, with
-``large_scene_mode="bricks"``, the persistent brick render
-(ops/brickkernel.py, kernel B6); and the plain integrator
+``config.wavefront_trace``) or, by ``config.large_scene_mode``, the
+persistent brick render ("bricks": ops/brickkernel.py, kernel B6) or one of
+the Plucker-matmul paths ("mx": experiments/mxtrace.py, library products;
+"mx2": experiments/mx2.py, kernel B7); and the plain integrator
 (ops/integrator.py, the JAX package's "xla" mode) for the rest, which are
-large sphere-only scenes.  On a card the first three launch their CUDA
-kernels; on the CPU they run the kernels' plain versions.  The JAX
+large sphere-only scenes.  On a card the paths with a kernel launch it; on
+the CPU they run the kernels' plain versions.  The JAX
 package's executable cache (utils/aotcache.py) has no counterpart: it
 worked around a TPU-backend recompile, and the kernels here are built once
 per source hash into the package's _build/ directory.
@@ -30,6 +31,10 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..experiments.mx2 import render_samples_mx2
+from ..experiments.mx2set import MX2Set
+from ..experiments.mxset import MXSet
+from ..experiments.mxtrace import render_samples_mx
 from ..models.bricks import BrickSet
 from ..models.device_scene import DeviceScene
 from ..models.scenepack import load_scene
@@ -42,29 +47,36 @@ from ..utils import image as img_util
 from ..utils.config import RenderConfig
 
 
+# the large-scene paths and the set of tensors each one renders
+_LARGE_SETS = {"wavefront": BrickSet, "bricks": BrickSet, "mx": MXSet,
+               "mx2": MX2Set}
+
+
 def _render_mode(scene, large_scene_mode: str = "wavefront") -> str:
-    """The compute path for a scene (a ScenePack, or a prebuilt BrickSet,
-    which pins the large-scene path):
+    """The compute path for a scene: a ScenePack, or a prebuilt BrickSet,
+    MXSet or MX2Set, which pins the large-scene path:
       * "megakernel" — at most MEGAKERNEL_MAX_PRIMS primitives;
       * "wavefront"  — larger scenes with triangles and at most
                        MEGAKERNEL_MAX_PRIMS spheres, the sorted wavefront;
       * "bricks"     — the same scenes with ``large_scene_mode="bricks"``,
                        the persistent brick render;
+      * "mx", "mx2"  — the same scenes with that ``large_scene_mode``, or a
+                       prebuilt MXSet / MX2Set whatever the mode: the
+                       Plucker-matmul paths (experiments/);
       * "plain"      — the rest (large sphere-only scenes): the plain
                        integrator with the BVH walk, the JAX package's "xla".
-    The JAX package's retired experiments "mx" and "mx2" are not ported:
-    on a ScenePack they raise; a prebuilt BrickSet takes the wavefront for
-    them, as in the JAX package."""
-    if large_scene_mode not in ("wavefront", "bricks", "mx", "mx2"):
+    A prebuilt BrickSet takes "bricks" or, for every other mode, the
+    wavefront, as in the JAX package."""
+    if large_scene_mode not in _LARGE_SETS:
         raise ValueError(f"unknown large_scene_mode {large_scene_mode!r}")
+    if isinstance(scene, MX2Set):
+        return "mx2"
+    if isinstance(scene, MXSet):
+        return "mx"
     if isinstance(scene, BrickSet):
         return "bricks" if large_scene_mode == "bricks" else "wavefront"
     if (scene.num_prims > MEGAKERNEL_MAX_PRIMS and scene.num_triangles > 0
             and scene.num_spheres <= MEGAKERNEL_MAX_PRIMS):
-        if large_scene_mode in ("mx", "mx2"):
-            raise NotImplementedError(
-                f"large_scene_mode {large_scene_mode!r} is not ported "
-                "(ROADMAP A10); the port runs 'wavefront' and 'bricks'")
         return large_scene_mode
     if scene.num_prims <= MEGAKERNEL_MAX_PRIMS:
         return "megakernel"
@@ -78,9 +90,12 @@ class ProgressiveRenderer:
     ``accum`` is a [H, W, 3] float32 tensor on ``device``, updated in place
     (``accum += new``) each step — the analog of the reference's persistent
     ``accumulationBuffer`` (main.cu:213-218).  ``scene`` is a ScenePack or
-    a prebuilt BrickSet; ``mode`` is the compute path (``_render_mode``;
-    "bricks" with ``enable_nee`` takes "wavefront") and ``waves`` counts
-    the wavefront waves traced so far."""
+    a prebuilt BrickSet, MXSet or MX2Set; ``mode`` is the compute path
+    (``_render_mode``; "bricks" with ``enable_nee`` takes "wavefront").
+    ``stats`` holds what the wavefront, "mx" and "mx2" paths have counted so
+    far: the waves traced ("waves", also ``waves``) and their rays ("rays"),
+    and on "mx" the rounds run ("rounds") and the packet-and-brick products
+    made ("products")."""
 
     def __init__(self, scene, camera: Camera, width: int,
                  height: int, config: RenderConfig = RenderConfig(),
@@ -97,13 +112,14 @@ class ProgressiveRenderer:
             # never fall back to another device
             raise RuntimeError(f"device {self.device} requested but CUDA "
                                "is not available")
-        if isinstance(scene, BrickSet):
+        if isinstance(scene, (BrickSet, MXSet, MX2Set)):
             self.scene = scene.to(self.device)
-        elif self.mode in ("wavefront", "bricks"):
-            self.scene = BrickSet.from_pack(scene).to(self.device)
+        elif self.mode in _LARGE_SETS:
+            self.scene = _LARGE_SETS[self.mode].from_pack(scene).to(
+                self.device)
         else:
             self.scene = DeviceScene.from_pack(scene).to(self.device)
-        self.waves = 0
+        self.stats = {}
         self.camera = camera
         self.initial_camera = camera
         self.width = width
@@ -126,6 +142,10 @@ class ProgressiveRenderer:
         cam = Camera.from_parsed(parsed.camera)
         return cls(pack, cam, width or parsed.camera.width,
                    height or parsed.camera.height, config, device)
+
+    @property
+    def waves(self) -> int:
+        return self.stats.get("waves", 0)
 
     def _upload_camera(self, camera: Camera) -> torch.Tensor:
         return torch.as_tensor(
@@ -174,13 +194,18 @@ class ProgressiveRenderer:
                 self.sample_count, ns, cfg.seed, cfg.max_depth,
                 cfg.rr_start_depth, cfg.enable_nee)
         elif self.mode == "wavefront":
-            stats = {}
             new = render_samples_wavefront(
                 self.scene, self._cam_data, self.width, self.height,
                 self.sample_count, ns, cfg.seed, cfg.max_depth,
                 cfg.rr_start_depth, nee=cfg.enable_nee,
-                trace=cfg.wavefront_trace, stats=stats)
-            self.waves += stats.get("waves", 0)
+                trace=cfg.wavefront_trace, stats=self.stats)
+        elif self.mode in ("mx", "mx2"):
+            render = render_samples_mx if self.mode == "mx" \
+                else render_samples_mx2
+            new = render(self.scene, self._cam_data, self.width, self.height,
+                         self.sample_count, ns, cfg.seed, cfg.max_depth,
+                         cfg.rr_start_depth, nee=cfg.enable_nee,
+                         stats=self.stats)
         elif self.mode == "bricks":
             new = render_samples_bricks(
                 self.scene, self._cam_data, self.width, self.height,

@@ -10,9 +10,7 @@ nothing in the port reads yet return with their slices: the viewer's
 (``fov_*``, ``move_speed``, ``mouse_sensitivity``); its ``setup_jax`` has
 no counterpart.  The large-scene fields keep the JAX defaults; the port
 runs every value of ``wavefront_trace`` (ops/wavefront.py::parse_engine)
-and ``large_scene_mode`` "wavefront" and "bricks"; "mx" and "mx2" raise
-NotImplementedError on a scene that is not a prebuilt BrickSet
-(render/renderer.py).  The JAX package's
+and of ``large_scene_mode`` (render/renderer.py).  The JAX package's
 ``wavefront_compact_tail`` and ``wavefront_tail_trace`` shaped its
 compaction ladder; the port compacts after every wave instead
 (ops/wavefront.py), so they have no counterpart.
@@ -42,8 +40,11 @@ class RenderConfig:
     # large-triangle-scene compute path: "wavefront", the sorted wavefront
     # (ops/wavefront.py, kernel B2), or "bricks", the persistent brick
     # render (ops/brickkernel.py, kernel B6; with enable_nee the renderer
-    # takes "wavefront", since B6 has no NEE).  The JAX package's retired
-    # experiments "mx" and "mx2" are not ported (ROADMAP A10).
+    # takes "wavefront", since B6 has no NEE), or one of the Plucker-matmul
+    # paths of experiments/: "mx" (library products over 128-triangle
+    # bricks, experiments/mxtrace.py) or "mx2" (kernel B7 over superbricks,
+    # experiments/mx2.py, csrc/mx2_trace.cu).  A prebuilt BrickSet takes
+    # the wavefront for "mx" and "mx2".
     large_scene_mode: str = "wavefront"
     # per-wave closest-hit engine of the wavefront (ops/wavefront.py::
     # parse_engine): "slim", kernel B2 (csrc/brick_trace.cu; "slim[N]" and

@@ -10,8 +10,8 @@
 * tile ranges and real-pass counts, the unit a split across devices
   partitions, add up to the whole image;
 * the renderer's "bricks" mode, its NEE reroute to the wavefront, and a
-  prebuilt BrickSet with the unported modes "mx" and "mx2", which takes the
-  wavefront as in the JAX package.
+  prebuilt BrickSet with the modes "mx" and "mx2", which takes the
+  wavefront as in the JAX package (those paths need their own sets).
 
 The CUDA kernel runs only on a card: the ``cuda`` cases skip without one.
 They hold B6 to its plain version at 160x120, 2 samples: depth 4 at the

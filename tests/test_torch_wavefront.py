@@ -9,7 +9,7 @@
   tests/test_torch_integrator.py;
 * the sort keys, the wave layout and the winner-record epilogue, exactly or
   to float32 rounding; sample splits and reproducibility; the engine names
-  (every one renders) and their parser.
+  and the large-scene modes (every one renders) and the engines' parser.
 
 The JAX side is jitted, and XLA contracts a*b+c into FMAs where torch
 rounds twice, so a ray through a shared triangle edge (|u + v - 1| near
@@ -352,10 +352,23 @@ def test_bad_engine_names_are_value_errors(blob, name):
 
 @pytest.mark.parametrize("mode,item", [("mx", "A10"), ("mx2", "A10")])
 def test_unported_large_scene_modes_raise(mode, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        ProgressiveRenderer.from_xml(
-            BLOB_BOX, RenderConfig(large_scene_mode=mode), width=W,
-            height=H, device="cpu")
+    """Every large-scene mode of the JAX package renders (the name is from
+    when "mx" and "mx2" raised, naming their roadmap item): on a ScenePack
+    each takes its own path and gives the wavefront's image at the
+    criterion of tests/test_mx2.py:54-56."""
+    renderer = ProgressiveRenderer.from_xml(
+        BLOB_BOX, RenderConfig(large_scene_mode=mode, max_depth=2), width=W,
+        height=H, device="cpu")
+    assert renderer.mode == mode and item == "A10"
+    renderer.step()
+    assert renderer.waves == 2 and renderer.sample_count == 2
+    ref = ProgressiveRenderer.from_xml(
+        BLOB_BOX, RenderConfig(max_depth=2), width=W, height=H, device="cpu")
+    ref.step()
+    got, want = renderer.hdr(), ref.hdr()
+    assert np.isfinite(got).all() and got.mean() > 0.0
+    assert (np.abs(got - want) > 1e-3).mean() < 2e-3
+    assert np.abs(got - want).mean() < 1e-3
 
 
 def test_unknown_engine_sort_and_mode_are_errors(blob):
