@@ -9,8 +9,9 @@ JAX, and fails with a non-zero exit code if any phase fails:
 
 1. the card's name and power limit (nvidia-smi);
 2. the megakernel build (csrc/megakernel.cu, nvcc for sm_90a) and its time;
-2b. the brick-trace build (csrc/brick_trace.cu, kernels B2 and B3), started
-   at the same time as the megakernel's, with its time and ptxas report;
+2b. the brick-trace build (csrc/brick_trace.cu, kernels B2 and B3 on the
+   walk of csrc/brick_walk.cuh), started at the same time as the
+   megakernel's, with its time and ptxas report;
 2c. the brick-render build (csrc/brick_render.cu, kernel B6), in the same
    parallel build;
 2d. the builds of csrc/brick_trace_slim2.cu (kernel B4) and
@@ -27,9 +28,12 @@ JAX, and fails with a non-zero exit code if any phase fails:
    first-bounce wave of a 640x480, 2-sample render of scenes/blob_box.xml;
    in whole wavefront renders at 160x120, depth 4 (shallow) and 12
    (statistical), NEE off and on; then the large scene is built (blob_box
-   subdivided three levels, 327,692 triangles), and on its primary and
-   first-bounce waves of a 640x480, 2-sample render, the waves the main
-   path launches, both versions are compared and timed;
+   subdivided three levels, 327,692 triangles) with its walk table (the
+   compact table kernels B2, B3 and B6 read: its bytes and build time are
+   printed), and on its primary and first-bounce waves of a 640x480,
+   2-sample render, the waves the main path launches, both versions are
+   compared and timed; on all four waves t and slot equal the plain
+   version's bit for bit on every ray;
 3c. kernel B3 (the full record with per-ray counters) against its plain
    version on the same four waves: all 16 channels and the three counters
    equal on all but at most 1e-4 of the rays; B3 timed against B2 and its
@@ -218,15 +222,15 @@ def mx_check(got: np.ndarray, ref: np.ndarray) -> dict:
 
 
 def trace_check(t, slot, ref_t, ref_slot) -> dict:
-    """Kernel B2 against its plain version on one wave: slot equal and t
-    within rtol 1e-5 on all but at most 1e-4 of the rays (equal-t ties on
-    shared edges)."""
+    """Kernel B2 against its plain version on one wave: the two walk the
+    same per-ray order with the same arithmetic, so slot and the bits of t
+    are equal on every ray."""
     t, slot = t.cpu().numpy(), slot.cpu().numpy()
     ref_t, ref_slot = ref_t.cpu().numpy(), ref_slot.cpu().numpy()
-    differ = (slot != ref_slot) | ~np.isclose(t, ref_t, rtol=1e-5, atol=0.0)
+    differ = (slot != ref_slot) | (t.view(np.int32) != ref_t.view(np.int32))
     both = (slot == ref_slot) & np.isfinite(t) & np.isfinite(ref_t)
     err = float(np.abs(t[both] - ref_t[both]).max()) if both.any() else 0.0
-    return {"ok": bool(differ.mean() <= 1e-4), "rays": int(len(t)),
+    return {"ok": not differ.any(), "rays": int(len(t)),
             "mismatch_share": float(differ.mean()),
             "hit_share": float((slot >= 0).mean()), "max_abs_err": err}
 
@@ -725,12 +729,22 @@ def main(argv=None) -> int:
     big = big_host.to(dev)
     torch.cuda.synchronize()
     upload_s = time.perf_counter() - t0
+    # what kernels B2, B3 and B6 read: built once per set and device, kept
+    # with the set through every later .to(device)
+    walk_table = big.walk_table()
     big_cam = Camera.from_parsed(big_parsed.camera)
     print(f"large scene: {big_pack.num_triangles} triangles, "
           f"{big.num_bricks} bricks, {big.num_top} top nodes, depth "
           f"{big.top_depth}; parse+subdivide+pack+SAH+bricks "
           f"{scene_build_s:.2f} s; upload {big.nbytes} bytes "
           f"(brick_data {big.brick_data.numel() * 4}) in {upload_s:.4f} s")
+    print(f"walk table of kernels B2, B3 and B6: {walk_table.nbytes} bytes "
+          f"({walk_table.nodes.numel() * 4} of node records, "
+          f"{walk_table.tris.numel() * 4} of triangle test data) beside "
+          f"{big.sub_boxes.numel() * 4} bytes of chunk gates, built on the "
+          f"card in {walk_table.build_s * 1e3:.2f} ms (set-up); the node "
+          f"records are read from global memory, not staged in shared "
+          f"memory")
     cd = torch.from_numpy(camera_ray_data(big_cam, MAIN_W, MAIN_H)).to(dev)
     big_waves = capture_waves(big, cd, MAIN_W, MAIN_H, 2)
     if big_waves[0][0].x.numel() != MAIN_W * MAIN_H * SPP:
@@ -861,8 +875,11 @@ def main(argv=None) -> int:
     # wave their times are of.  Operations: what this wave's rays need, from
     # B3's per-ray counters on it (a box test per node popped and per gate
     # of each brick entered, 32 triangle tests per gate passed).  Bytes: the
-    # bricks and the top tree once, the rays in (24 bytes each) and the
-    # result out (8 bytes; B3's record 64).
+    # scene as the kernel reads it once, the rays in (24 bytes each) and the
+    # result out (8 bytes; B3's record 64).  B2, B3 and B6 read the walk
+    # table and the chunk gates (B3 and B6 also the 128-byte record of each
+    # hit's winner, what this wave's hits need); B4 and B5 the bricks and
+    # the top tree.
     def walk_ops(counters):
         return ((counters["nodes"]["mean"] + 16 * counters["bricks"]["mean"])
                 * BOX_OPS + counters["chunks"]["mean"] * 32 * TRI_OPS)
@@ -872,9 +889,15 @@ def main(argv=None) -> int:
     wave_rays = wave_ms["bounce 1"]["rays"]
     scene_bytes = (big.brick_data.numel() + big.top_boxes.numel()
                    + big.top_links.numel()) * 4
+    walk_bytes = walk_table.nbytes + big.sub_boxes.numel() * 4
+    wave_hits = next(c["hit_share"] for c in b3_checks
+                     if c["scene"] == "blob_box x3"
+                     and c["wave"] == "bounce 1") * wave_rays
     wave_ops = wave_rays * walk_ops(big_counters["bounce 1"])
-    slim_bound = bound(scene_bytes + wave_rays * 32, wave_ops)
-    full_bound = bound(scene_bytes + wave_rays * 88, wave_ops)
+    slim_bound = bound(walk_bytes + wave_rays * 32, wave_ops)
+    full_bound = bound(walk_bytes + wave_hits * 128 + wave_rays * 88,
+                       wave_ops)
+    slim2_bound = bound(scene_bytes + wave_rays * 32, wave_ops)
     # B5 also reads its packets' lists (a brick id and a bound per pair)
     pair_bound = bound(
         scene_bytes + wave_rays * 32
@@ -937,7 +960,10 @@ def main(argv=None) -> int:
                    large_scene_build_s=scene_build_s,
                    large_scene_upload_s=upload_s,
                    large_scene_bytes=big.nbytes,
-                   brick_data_bytes=big.brick_data.numel() * 4)
+                   brick_data_bytes=big.brick_data.numel() * 4,
+                   walk_table_bytes=walk_table.nbytes,
+                   walk_table_build_ms=walk_table.build_s * 1e3,
+                   walk_nodes="global")
 
     counters = (mk.megakernel_cuda, wf.trace_bricks_cuda,
                 wf.trace_bricks_full_cuda, bk.render_bricks_cuda,
@@ -1013,7 +1039,8 @@ def main(argv=None) -> int:
     # scene once and writes the image
     frame_rays = MAIN_W * MAIN_H * SPP
     b6_bound = bound(
-        scene_bytes + big.sph_rows.numel() * 4 + MAIN_W * MAIN_H * 12,
+        walk_bytes + min(big.brick_data.numel() * 4, stats["rays"] * 128)
+        + big.sph_rows.numel() * 4 + MAIN_W * MAIN_H * 12,
         frame_rays * walk_ops(big_counters["primary"])
         + (stats["rays"] - frame_rays) * walk_ops(big_counters["bounce 1"]))
     big_renderer = ProgressiveRenderer(big, big_cam, MAIN_W, MAIN_H,
@@ -1358,7 +1385,7 @@ def main(argv=None) -> int:
         "max_abs_err": max(c["max_abs_err"] for c in engine_checks["slim2"]),
         "ms": wave_ms["bounce 1"]["engines"]["slim2"],
         "plain_ms": wave_ms["bounce 1"]["slim2_plain_ms"],
-        **slim_bound,
+        **slim2_bound,
         "library_ms": None,
     }, {
         # launches: the "pairs" path (4f); times: the same wave, 32-row

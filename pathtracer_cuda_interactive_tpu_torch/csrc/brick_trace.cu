@@ -17,20 +17,23 @@
 //   count, so these are per ray.  Its plain version is
 //   ops/brickkernel.py::trace_bricks_full_plain.
 //
-// What bounds them on the card: dependent memory reads and divergence, not
-// FP32 work.  Each ray walks the top tree node by node (a 32-byte box and an
-// 8-byte link per node), reads the 512-byte chunk-gate row of every brick it
-// reaches and 36 bytes of each of the 32 triangles behind every chunk gate it
-// passes; neighbouring rays of a warp take different paths through the tree.
-// A 328k-triangle scene's bricks are about 64 MB, more than the 50 MB L2.
+// What bounds them on the card: the latency of dependent reads and the
+// divergence of a warp's 32 walks, not bytes or FP32 work.  Per ray a wave
+// pops 13-16 nodes, enters 1.4-1.7 bricks and passes 1.7-2.3 chunk gates
+// (54-73 triangle tests against 35-43 box tests); the bytes a wave must move
+// and its operations would take about 1% of its time.
 //
-// What the design does about that (a simple design that is right first):
-// the walk of csrc/brick_walk.cuh, one thread and one stack per ray; the
-// wavefront sorts rays by a coherence key between waves (ops/wavefront.py),
-// so neighbouring threads tend to walk the same nodes and bricks and their
-// reads coalesce in L1.  Shared-memory staging, cp.async or TMA and
-// warp-cooperative walks are for later work.  Arithmetic repeats the plain
-// version op for op (--fmad=false, no fast math, IEEE division).
+// What the design does about that is the walk's (csrc/brick_walk.cuh): a
+// compact walk table, one 64-byte record a node and 1,152 bytes a chunk of
+// triangles, that stays in L2; one loop whose lanes meet again before the
+// node, gate and triangle phases; and a held chunk's 32 triangles tested by
+// the whole warp at once.  These kernels are thin shells around it: one thread
+// per ray, 128-thread blocks, whole warps in the walk (a thread past the
+// wave's end, or a ray masked out, takes part without a ray).  The wavefront
+// sorts rays by a coherence key between waves (ops/wavefront.py), so
+// neighbouring threads tend to walk the same nodes and bricks.  Arithmetic
+// repeats the plain version op for op (--fmad=false, no fast math, IEEE
+// division).
 
 #include "brick_walk.cuh"
 
@@ -44,19 +47,22 @@ __global__ void __launch_bounds__(kBlock)
 brick_trace(const float* __restrict__ ox, const float* __restrict__ oy,
             const float* __restrict__ oz, const float* __restrict__ dx,
             const float* __restrict__ dy, const float* __restrict__ dz, int n, float tnear,
-            const float* __restrict__ top_boxes, const int* __restrict__ top_links,
-            const float* __restrict__ brick_data, float* __restrict__ out_t,
-            int* __restrict__ out_slot) {
+            WalkTable table, float* __restrict__ out_t, int* __restrict__ out_slot) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const Bricks b = {top_boxes, top_links, brick_data};
+  const bool active = i < n;
+  V3 o = {0.0f, 0.0f, 0.0f}, d = o;
+  if (active) {
+    o = {ox[i], oy[i], oz[i]};
+    d = {dx[i], dy[i], dz[i]};
+  }
   float best_t = INFINITY, u, v;
   int best_slot = -1;
   WalkCounts unused;
-  brick_walk<false, false>(b, {ox[i], oy[i], oz[i]}, {dx[i], dy[i], dz[i]}, tnear, best_t,
-                           best_slot, u, v, unused);
-  out_t[i] = best_t;
-  out_slot[i] = best_slot;
+  brick_walk<false, false>(table, active, o, d, tnear, best_t, best_slot, u, v, unused);
+  if (active) {
+    out_t[i] = best_t;
+    out_slot[i] = best_slot;
+  }
 }
 
 // out: [16, n] channel-major (coalesced stores); stats: [3, n] when kStats.
@@ -65,20 +71,20 @@ __global__ void __launch_bounds__(kBlock)
 brick_trace_full(const float* __restrict__ ox, const float* __restrict__ oy,
                  const float* __restrict__ oz, const float* __restrict__ dx,
                  const float* __restrict__ dy, const float* __restrict__ dz, int n,
-                 float tnear, const unsigned char* __restrict__ active,
-                 const float* __restrict__ sph_rows, int S,
-                 const float* __restrict__ top_boxes, const int* __restrict__ top_links,
-                 const float* __restrict__ brick_data, float* __restrict__ out,
-                 int* __restrict__ stats) {
+                 float tnear, const unsigned char* __restrict__ mask,
+                 const float* __restrict__ sph_rows, int S, WalkTable table,
+                 float* __restrict__ out, int* __restrict__ stats) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const Bricks b = {top_boxes, top_links, brick_data};
-  WalkCounts counts = {0, 0, 0};
-  HitRecord rec = miss_record();
-  if (active == nullptr || active[i]) {
-    brick_closest<kStats>(sph_rows, S, b, {ox[i], oy[i], oz[i]}, {dx[i], dy[i], dz[i]}, tnear,
-                          rec, counts);
+  const bool active = i < n && (mask == nullptr || mask[i]);
+  V3 o = {0.0f, 0.0f, 0.0f}, d = o;
+  if (active) {
+    o = {ox[i], oy[i], oz[i]};
+    d = {dx[i], dy[i], dz[i]};
   }
+  WalkCounts counts = {0, 0, 0};
+  HitRecord rec;
+  brick_closest<kStats>(sph_rows, S, table, active, o, d, tnear, rec, counts);
+  if (i >= n) return;
   const float ch[16] = {rec.t,        rec.ns.x,     rec.ns.y,     rec.ns.z,
                         rec.pos.x,    rec.pos.y,    rec.pos.z,    rec.mtype,
                         rec.albedo.x, rec.albedo.y, rec.albedo.z, rec.mparam,
@@ -94,40 +100,43 @@ brick_trace_full(const float* __restrict__ ox, const float* __restrict__ oy,
 
 }  // namespace
 
-// Launch B2 on `stream`.  The caller checks that the top tree's depth + 2 is
-// at most kStack.  Returns cudaGetLastError() (0 on success).
+// Launch B2 on `stream`: `nodes` and `tris` are the set's walk table (16-byte
+// aligned), `gates` its sub_boxes.  The caller checks that the top tree's
+// depth + 2 is at most kStack.  Returns cudaGetLastError() (0 on success).
 extern "C" int pt_brick_trace_launch(const float* ox, const float* oy, const float* oz,
                                      const float* dx, const float* dy, const float* dz, int n,
-                                     float tnear, const float* top_boxes, const int* top_links,
-                                     const float* brick_data, float* out_t, int* out_slot,
+                                     float tnear, const void* nodes, const void* tris,
+                                     const void* gates, float* out_t, int* out_slot,
                                      void* stream) {
   if (n <= 0) return 0;
+  const WalkTable table = {(const float4*)nodes, (const float*)tris, (const float4*)gates,
+                           nullptr};
   const dim3 grid((unsigned)((n + kBlock - 1) / kBlock));
   brick_trace<<<grid, kBlock, 0, (cudaStream_t)stream>>>(ox, oy, oz, dx, dy, dz, n, tnear,
-                                                         top_boxes, top_links, brick_data, out_t,
-                                                         out_slot);
+                                                         table, out_t, out_slot);
   return (int)cudaGetLastError();
 }
 
-// Launch B3 on `stream`: `active` may be null (every ray traced), `stats`
-// null (no counters).  Returns cudaGetLastError() (0 on success).
+// Launch B3 on `stream`: the walk table as for B2, and `brick_data` for the
+// winner's record; `active` may be null (every ray traced), `stats` null (no
+// counters).  Returns cudaGetLastError() (0 on success).
 extern "C" int pt_brick_trace_full_launch(const float* ox, const float* oy, const float* oz,
                                           const float* dx, const float* dy, const float* dz,
                                           int n, float tnear, const unsigned char* active,
                                           const float* sph_rows, int num_spheres,
-                                          const float* top_boxes, const int* top_links,
-                                          const float* brick_data, float* out, int* stats,
-                                          void* stream) {
+                                          const void* nodes, const void* tris,
+                                          const void* gates, const float* brick_data,
+                                          float* out, int* stats, void* stream) {
   if (n <= 0) return 0;
+  const WalkTable table = {(const float4*)nodes, (const float*)tris, (const float4*)gates,
+                           brick_data};
   const dim3 grid((unsigned)((n + kBlock - 1) / kBlock));
   if (stats != nullptr) {
     brick_trace_full<true><<<grid, kBlock, 0, (cudaStream_t)stream>>>(
-        ox, oy, oz, dx, dy, dz, n, tnear, active, sph_rows, num_spheres, top_boxes, top_links,
-        brick_data, out, stats);
+        ox, oy, oz, dx, dy, dz, n, tnear, active, sph_rows, num_spheres, table, out, stats);
   } else {
     brick_trace_full<false><<<grid, kBlock, 0, (cudaStream_t)stream>>>(
-        ox, oy, oz, dx, dy, dz, n, tnear, active, sph_rows, num_spheres, top_boxes, top_links,
-        brick_data, out, stats);
+        ox, oy, oz, dx, dy, dz, n, tnear, active, sph_rows, num_spheres, table, out, stats);
   }
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,8 @@
-// The render shell shared by the full-render kernels, the small-scene
-// megakernel (csrc/megakernel.cu, B1) and the persistent brick render
-// (csrc/brick_render.cu, B6): the counterpart of the JAX package's
-// ops/megakernel.py::make_persistent_kernel.  One thread renders one pixel
+// The render shell of the small-scene megakernel (csrc/megakernel.cu, B1):
+// the counterpart of the JAX package's
+// ops/megakernel.py::make_persistent_kernel.  The persistent brick render
+// (csrc/brick_render.cu, B6) takes the camera rays from here and has a shell
+// of its own, which keeps whole warps together.  One thread renders one pixel
 // and loops over its samples one after another: per sample a camera ray
 // with jitter, then the radiance.cuh:21-79 bounce logic with Russian
 // roulette after rr_start_depth and a depth cap.  The RNG streams and draw

@@ -21,11 +21,18 @@ fields of the JAX package's BrickSet) and ``from_pack`` runs the host build.
 The layout keeps the TPU's 128-wide packing of the top tree and the
 ``MAX_TOP_NODES`` / ``STACK_DEPTH`` bounds for parity with the JAX package;
 on the card they are not memory budgets.
+
+``WalkTable`` is what the brick kernels' per-ray walk reads on a card
+(csrc/brick_walk.cuh): the top tree as one 64-byte record per node and the
+nine floats of every triangle's test apart from its 128-byte record.  It is
+derived from a ``BrickSet``'s tensors in torch ops, once per set and device
+(``BrickSet.walk_table``), and carried along by ``.to(device)``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -53,6 +60,87 @@ SIG_BOXES = 16
 # the JAX package's resident top-tree budget (TPU SMEM), kept so that both
 # packages accept the same scenes
 MAX_TOP_NODES = 18_000
+
+
+# floats of a WalkTable node record (64 bytes)
+NODE_FLOATS = 16
+# floats 1..9 of a prim record: p0, e1, e2 of the triangle test
+TRI_FLOATS = 9
+
+
+@dataclass
+class WalkTable:
+    """The compact table the per-ray brick walk reads (all on one device).
+
+    ``nodes`` [num_top, 16] f32, one 64-byte record per top-tree node:
+    floats 0..5 the node's own box (min xyz, max xyz), 6 its skip link and
+    7 its brick id (int32 bits; -1 for an internal node); for an internal
+    node 8..10 the sums ``b[f] + b[f + 3]`` (twice the box centre) of its
+    left child's box, 11 the left child (node + 1, int32 bits), 12..14 the
+    same sums of its right child and 15 the right child (the left child's
+    skip link).  A leaf's floats 8..15 are zero.  One pop of the walk reads
+    one record; the nearer child is the one whose sums project lower on the
+    ray's direction, which is the walk's ``center_key`` with the sums
+    formed first, as it forms them.
+
+    ``tris`` [num_bricks * 16, 9, 32] f32: per chunk of 32 triangle slots,
+    nine runs of 32 floats, run c holding float 1 + c of each slot's record
+    (p0 xyz, e1 xyz, e2 xyz).  Empty slots keep their zeros, so they miss as
+    they do in the records.  The 32 lanes of a warp test a chunk's 32 triangles
+    together and read each run as one 128-byte line.
+
+    The chunk gates are compact already: the walk reads the set's own
+    ``sub_boxes``."""
+    nodes: torch.Tensor
+    tris: torch.Tensor
+    # host seconds the build took (set-up time; with the device's work when
+    # the set is on a card)
+    build_s: float = 0.0
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for t in (self.nodes, self.tris))
+
+    def to(self, device) -> "WalkTable":
+        return WalkTable(self.nodes.to(device), self.tris.to(device),
+                         self.build_s)
+
+    @staticmethod
+    def build(bricks: "BrickSet") -> "WalkTable":
+        """Derive the table from a BrickSet's tensors, on their device."""
+        dev = bricks.device
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        n = bricks.num_top
+        boxes = bricks.top_boxes.reshape(-1, 8)[:n]
+        links = bricks.top_links.reshape(-1, 2)[:n]
+        skip, brick = links[:, 0], links[:, 1]
+        inner = brick < 0
+        ids = torch.arange(n, dtype=torch.int32, device=dev)
+        zero = torch.zeros_like(ids)
+        left = torch.where(inner, ids + 1, zero)
+        right = torch.where(inner, skip[left.long()], zero)
+        sums = boxes[:, 0:3] + boxes[:, 3:6]
+        nodes = torch.zeros((n, NODE_FLOATS), dtype=torch.float32, device=dev)
+        bits = nodes.view(torch.int32)
+        nodes[:, 0:6] = boxes[:, 0:6]
+        bits[:, 6] = skip
+        bits[:, 7] = brick
+        nodes[:, 8:11] = torch.where(inner[:, None], sums[left.long()], 0.0)
+        bits[:, 11] = left
+        nodes[:, 12:15] = torch.where(inner[:, None], sums[right.long()], 0.0)
+        bits[:, 15] = right
+
+        B = int(bricks.brick_data.shape[0])
+        recs = bricks.brick_data[:, :BRICK_DATA_ROWS].reshape(
+            B, NUM_SUBS, SUB_PRIMS, 32)
+        tris = recs[..., 1:1 + TRI_FLOATS].permute(0, 1, 3, 2).reshape(
+            B * NUM_SUBS, TRI_FLOATS, SUB_PRIMS).contiguous()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return WalkTable(nodes, tris, time.perf_counter() - t0)
 
 
 @dataclass
@@ -97,9 +185,19 @@ class BrickSet:
     # most top_depth + 1 slots
     top_depth: int
 
+    def __post_init__(self):
+        # the walk table of this set on this device, built on first use
+        self._walk = None
+
     @property
     def device(self) -> torch.device:
         return self.brick_data.device
+
+    def walk_table(self) -> WalkTable:
+        """The set's ``WalkTable``, built on the first call and kept."""
+        if self._walk is None:
+            self._walk = WalkTable.build(self)
+        return self._walk
 
     @property
     def nbytes(self) -> int:
@@ -110,13 +208,17 @@ class BrickSet:
                    if isinstance(v, torch.Tensor))
 
     def to(self, device) -> "BrickSet":
-        """A copy with every tensor on ``device``."""
+        """A copy with every tensor on ``device``; a walk table that was
+        built goes with it."""
         moved = {}
         for f in dataclasses.fields(self):
             value = getattr(self, f.name)
             moved[f.name] = (value.to(device)
                              if isinstance(value, torch.Tensor) else value)
-        return BrickSet(**moved)
+        out = BrickSet(**moved)
+        if self._walk is not None:
+            out._walk = self._walk.to(device)
+        return out
 
     @staticmethod
     def from_numpy(device="cpu", **arrays) -> "BrickSet":

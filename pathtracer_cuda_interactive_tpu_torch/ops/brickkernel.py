@@ -44,6 +44,11 @@ the TPU walks per packet of 2048 rays:
   triangle with the smallest t wins (strict ``t < best``), as in
   ``_tri_slot_body`` and ``_tri_record_body``.
 
+On a card the kernels read the set's compact walk table
+(models/bricks.py::WalkTable, ``walk_pointers``); the plain walk reads the
+set's own tensors or, given ``table=``, that table, with the same result
+bit for bit.
+
 Rays walk in lockstep, one node per step, and a ray whose stack is empty
 leaves the batch.  At a leaf all 512 triangle tests run at once, in ray
 chunks of ``LEAF_CHUNK`` so memory stays bounded at 640x480; the 16 chunk
@@ -64,7 +69,8 @@ from pathlib import Path
 import torch
 
 from ..models.bricks import (BRICK_DATA_ROWS, BRICK_PRIMS, BRICK_ROWS,
-                             NUM_SUBS, STACK_DEPTH, SUB_PRIMS, BrickSet)
+                             NUM_SUBS, STACK_DEPTH, SUB_PRIMS, TRI_FLOATS,
+                             BrickSet, WalkTable)
 from . import cuda_build, rng
 from . import geometry as g
 from .camera import generate_primary_rays
@@ -139,14 +145,59 @@ def _leaf(tris, subs, brick, o: Vec3, d: Vec3, inv: Vec3, tnear: float,
     return best_t, best_slot, best_uv, gates
 
 
+def _table_views(bricks: BrickSet, table: WalkTable):
+    """What ``_walk`` reads, taken from the kernels' walk table instead of
+    the set's own tensors: (tris [B, 512, 9], subs [B, 16, 8], boxes
+    [Ntop, 6], brick [Ntop] i64, children(node, d) -> (left, right,
+    left_first)), the children ordered by the stored centre sums."""
+    B = int(bricks.brick_data.shape[0])
+    tris = table.tris.view(B, NUM_SUBS, TRI_FLOATS, SUB_PRIMS).permute(
+        0, 1, 3, 2).reshape(B, BRICK_PRIMS, TRI_FLOATS)
+    nodes = table.nodes
+    bits = nodes.view(torch.int32).to(torch.int64)
+
+    def children(node, d: Vec3):
+        rec = nodes[node]
+        key = lambda j: (rec[:, j] * d.x + rec[:, j + 1] * d.y
+                         + rec[:, j + 2] * d.z)
+        return bits[node, 11], bits[node, 15], key(8) <= key(12)
+
+    return tris, bricks.sub_boxes, nodes[:, :6], bits[:, 7], children
+
+
+def _set_views(bricks: BrickSet):
+    """The same five from the set's own tensors: the top tree's boxes and
+    links and the brick records."""
+    tris, subs = _brick_views(bricks)
+    boxes = bricks.top_boxes.reshape(-1, 8)        # node n -> row n
+    links = bricks.top_links.reshape(-1, 2).to(torch.int64)
+
+    def children(node, d: Vec3):
+        left = node + 1
+        right = links[left, 0]
+
+        def center_key(n):
+            b = boxes[n]
+            return ((b[:, 0] + b[:, 3]) * d.x + (b[:, 1] + b[:, 4]) * d.y
+                    + (b[:, 2] + b[:, 5]) * d.z)
+
+        return left, right, center_key(left) <= center_key(right)
+
+    return tris, subs, boxes, links[:, 1], children
+
+
 def _walk(bricks: BrickSet, o: Vec3, d: Vec3, tnear: float, best_t,
-          full: bool, pipelined: bool = False):
+          full: bool, pipelined: bool = False, table: WalkTable = None):
     """The per-ray walk of every ray of [m] components ``o``, ``d``, below
     the start distances ``best_t``.  Returns (t, slot, uv, counts): the
     closest triangle's t where one is strictly nearer than ``best_t`` (else
     ``best_t``) and its slot (else -1); with ``full``, its (u, v) (else
     zeros), otherwise None; and the [3, m] int32 counts of nodes popped,
     bricks entered and chunk gates passed.
+
+    ``table``, the set's ``WalkTable``, makes the walk read the top tree
+    and the triangles from it, as the kernels do, instead of from the set's
+    own tensors; the result is the same bit for bit.
 
     ``pipelined`` defers every leaf by one (kernel B4's walk): a leaf that
     is found becomes pending, and the pending leaf is tested only when the
@@ -164,9 +215,8 @@ def _walk(bricks: BrickSet, o: Vec3, d: Vec3, tnear: float, best_t,
     if m == 0:
         return out_t, out_slot, out_uv, out_counts
 
-    tris, subs = _brick_views(bricks)
-    boxes = bricks.top_boxes.reshape(-1, 8)        # node n -> row n
-    links = bricks.top_links.reshape(-1, 2).to(torch.int64)
+    tris, subs, boxes, node_brick, children = (
+        _set_views(bricks) if table is None else _table_views(bricks, table))
     inv = Vec3(1.0 / d.x, 1.0 / d.y, 1.0 / d.z)
     best_slot = out_slot.clone()
     uv = (out_uv[0].clone(), out_uv[1].clone()) if full else None
@@ -188,7 +238,7 @@ def _walk(bricks: BrickSet, o: Vec3, d: Vec3, tnear: float, best_t,
         tn, tf = g.slab_interval(o, inv, Vec3(box[:, 0], box[:, 1], box[:, 2]),
                                  Vec3(box[:, 3], box[:, 4], box[:, 5]))
         hit = g.slab_hit(tn, tf, best_t) & have
-        brick = links[node, 1]
+        brick = node_brick[node]
         counts[0] += have
 
         found = hit & (brick >= 0)
@@ -217,16 +267,8 @@ def _walk(bricks: BrickSet, o: Vec3, d: Vec3, tnear: float, best_t,
 
         di = torch.nonzero(hit & (brick < 0)).reshape(-1)
         if di.numel():
-            left = node[di] + 1
-            right = links[left, 0]
-            dd = Vec3(d.x[di], d.y[di], d.z[di])
-
-            def center_key(n):
-                b = boxes[n]
-                return ((b[:, 0] + b[:, 3]) * dd.x + (b[:, 1] + b[:, 4]) * dd.y
-                        + (b[:, 2] + b[:, 5]) * dd.z)
-
-            left_first = center_key(left) <= center_key(right)
+            left, right, left_first = children(
+                node[di], Vec3(d.x[di], d.y[di], d.z[di]))
             near = torch.where(left_first, left, right)
             far = torch.where(left_first, right, left)
             stack[di, sp[di]] = far
@@ -260,7 +302,8 @@ def _ray_ids(active, n: int, device):
 
 
 def _trace_slim_plain(bricks: BrickSet, org: Vec3, dirn: Vec3, tnear: float,
-                      active, collect_stats: bool, pipelined: bool):
+                      active, collect_stats: bool, pipelined: bool,
+                      table: WalkTable = None):
     shape = org.x.shape
     dev = org.x.device
     n = org.x.numel()
@@ -272,7 +315,7 @@ def _trace_slim_plain(bricks: BrickSet, org: Vec3, dirn: Vec3, tnear: float,
     start = torch.full((int(ids.numel()),), INF, dtype=torch.float32,
                        device=dev)
     t, slot, _, counts = _walk(bricks, o, d, tnear, start, full=False,
-                               pipelined=pipelined)
+                               pipelined=pipelined, table=table)
     out_t[ids] = t
     out_slot[ids] = slot
     if not collect_stats:
@@ -285,14 +328,15 @@ def _trace_slim_plain(bricks: BrickSet, org: Vec3, dirn: Vec3, tnear: float,
 
 def trace_bricks_plain(bricks: BrickSet, org: Vec3, dirn: Vec3,
                        tnear: float, active=None,
-                       collect_stats: bool = False):
+                       collect_stats: bool = False, table: WalkTable = None):
     """Closest triangle hit of every ray over the brick set: (t f32, inf on
     a miss; slot i32, -1 on a miss), each of the rays' shape.  Rays where
     ``active`` is False are not traced.  Spheres are not tested.  With
     ``collect_stats`` also the int32 [3, *shape] per-ray counts of nodes
-    popped, bricks entered and chunk gates passed."""
+    popped, bricks entered and chunk gates passed.  With ``table`` the walk
+    reads the set's ``WalkTable`` (``_walk``)."""
     return _trace_slim_plain(bricks, org, dirn, tnear, active, collect_stats,
-                             pipelined=False)
+                             pipelined=False, table=table)
 
 
 def trace_bricks_pipelined_plain(bricks: BrickSet, org: Vec3, dirn: Vec3,
@@ -338,14 +382,16 @@ def triangle_record(rows, u, v):
 
 def trace_bricks_full_plain(bricks: BrickSet, org: Vec3, dirn: Vec3,
                             tnear: float, active=None,
-                            collect_stats: bool = False):
+                            collect_stats: bool = False,
+                            table: WalkTable = None):
     """The 16-channel closest hit of every ray over the resident spheres and
     the bricks: a tuple (t, ns x/y/z, pos x/y/z, mtype, albedo r/g/b,
     mparam, emission r/g/b, is_emitter) of f32 tensors of the rays' shape;
     t is inf and the rest 0 on a miss.  Rays where ``active`` is False are
     not traced (a miss).  With ``collect_stats`` returns (record, counts),
     counts the int32 [3, *shape] nodes popped, bricks entered and chunk
-    gates passed per ray (0 where not traced)."""
+    gates passed per ray (0 where not traced).  With ``table`` the walk
+    reads the set's ``WalkTable`` (``_walk``)."""
     shape = org.x.shape
     dev = org.x.device
     n = org.x.numel()
@@ -365,7 +411,8 @@ def trace_bricks_full_plain(bricks: BrickSet, org: Vec3, dirn: Vec3,
         best_t = torch.where(closer, ts, best_t)
         sph_k = torch.where(closer, j, sph_k)
 
-    t, slot, (u, v), counts = _walk(bricks, o, d, tnear, best_t, full=True)
+    t, slot, (u, v), counts = _walk(bricks, o, d, tnear, best_t, full=True,
+                                    table=table)
     tri = slot >= 0
     on_sph = ~tri & (sph_k >= 0)
     ns, pos, mt, alb, mp, em, emit = triangle_record(slot_rows(bricks, slot),
@@ -485,6 +532,28 @@ def render_tiles_bricks_plain(bricks: BrickSet, cam_data: torch.Tensor,
     return img.reshape(height, width, 3)
 
 
+def walk_pointers(bricks: BrickSet):
+    """(nodes, tris, gates) device pointers of what the brick kernels' walk
+    reads (csrc/brick_walk.cuh): the set's walk table, built on the first
+    call and kept with the set, and its ``sub_boxes``.  Raises on a layout
+    the kernels' 16-byte loads do not take."""
+    table = bricks.walk_table()
+    for name, t in (("walk table nodes", table.nodes),
+                    ("walk table tris", table.tris),
+                    ("sub_boxes", bricks.sub_boxes)):
+        if (t.device != bricks.device or t.dtype != torch.float32
+                or not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError(f"bricks {name}: need a contiguous, 16-byte "
+                             f"aligned float32 tensor on {bricks.device}")
+    if (int(table.nodes.shape[0]) != bricks.num_top
+            or int(table.tris.shape[0]) != bricks.num_bricks * NUM_SUBS
+            or tuple(bricks.sub_boxes.shape) != (bricks.num_bricks,
+                                                 NUM_SUBS, 8)):
+        raise ValueError("the walk table does not belong to this brick set")
+    return (table.nodes.data_ptr(), table.tris.data_ptr(),
+            bricks.sub_boxes.data_ptr())
+
+
 def build() -> Path:
     """Compile csrc/brick_render.cu into a shared library under BUILD_DIR
     unless it is there; returns its path.  Raises if nvcc is missing or the
@@ -500,7 +569,7 @@ def load_library() -> ctypes.CDLL:
         fn = lib.pt_brick_render_launch
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [ptr, i32,                  # sph_rows, S
-                       ptr, ptr, ptr,             # boxes, links, bricks
+                       ptr, ptr, ptr, ptr,        # nodes, tris, gates, bricks
                        ptr, ptr, ptr,             # cam, bg, out
                        i32, i32, i32, i32,        # width, height, tile0, n
                        ctypes.c_uint, i32, i32,   # sample_start, n, n_real
@@ -530,11 +599,7 @@ def render_bricks_cuda(bricks: BrickSet, cam: torch.Tensor, bg: torch.Tensor,
                            ("bg", bg, torch.float32),
                            ("bricks.sph_rows", bricks.sph_rows, torch.float32),
                            ("bricks.brick_data", bricks.brick_data,
-                            torch.float32),
-                           ("bricks.top_boxes", bricks.top_boxes,
-                            torch.float32),
-                           ("bricks.top_links", bricks.top_links,
-                            torch.int32)):
+                            torch.float32)):
         if t.device != device or t.dtype != dtype or not t.is_contiguous():
             raise ValueError(f"{name}: need a contiguous {dtype} tensor on "
                              f"{device}, got {t.dtype} on {t.device}")
@@ -553,13 +618,13 @@ def render_bricks_cuda(bricks: BrickSet, cam: torch.Tensor, bg: torch.Tensor,
     _check_tiles(width, height, tile0, n_tiles)
 
     lib = load_library()
+    nodes, tris, gates = walk_pointers(bricks)
     out = torch.zeros((height, width, 3), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.pt_brick_render_launch(
-            bricks.sph_rows.data_ptr(), bricks.num_spheres,
-            bricks.top_boxes.data_ptr(), bricks.top_links.data_ptr(),
-            bricks.brick_data.data_ptr(), cam.data_ptr(), bg.data_ptr(),
+            bricks.sph_rows.data_ptr(), bricks.num_spheres, nodes, tris,
+            gates, bricks.brick_data.data_ptr(), cam.data_ptr(), bg.data_ptr(),
             out.data_ptr(), width, height, tile0, n_tiles,
             sample_start & 0xFFFFFFFF, num_samples, num_real,
             seed & 0xFFFFFFFF, max_depth, rr_start_depth, stream)

@@ -55,7 +55,7 @@ from ..models.bricks import BRICK_ROWS, STACK_DEPTH, BrickSet
 from . import brdf, cuda_build, rng
 from .brickkernel import (slot_rows, tile_grid, trace_bricks_full_plain,
                           trace_bricks_pipelined_plain, trace_bricks_plain,
-                          triangle_record)
+                          triangle_record, walk_pointers)
 from .camera import generate_primary_rays
 from .geometry import intersect_sphere
 from .integrator import MAX_DEPTH, RR_START_DEPTH, SECONDARY_TNEAR
@@ -137,7 +137,7 @@ def load_library() -> ctypes.CDLL:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr,   # ox oy oz dx dy dz
                        i32, ctypes.c_float,            # n, tnear
-                       ptr, ptr, ptr,                  # boxes, links, bricks
+                       ptr, ptr, ptr,                  # nodes, tris, gates
                        ptr, ptr,                       # out_t, out_slot
                        ptr]                            # stream
         fn.restype = ctypes.c_int
@@ -145,7 +145,7 @@ def load_library() -> ctypes.CDLL:
         fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr,   # ox oy oz dx dy dz
                        i32, ctypes.c_float, ptr,       # n, tnear, active
                        ptr, i32,                       # sph_rows, S
-                       ptr, ptr, ptr,                  # boxes, links, bricks
+                       ptr, ptr, ptr, ptr,             # nodes, tris, gates, bricks
                        ptr, ptr,                       # out, stats
                        ptr]                            # stream
         fn.restype = ctypes.c_int
@@ -155,8 +155,9 @@ def load_library() -> ctypes.CDLL:
 
 def _check_wave(bricks: BrickSet, rays, name: str) -> int:
     """Check a wave's ray components (contiguous float32 [N] tensors on one
-    card) and the brick set against what the brick kernels take; returns
-    N."""
+    card) and the brick set against what the brick kernels take (B4 and B5
+    read the set's own tensors; B2 and B3 its walk table, which
+    ``walk_pointers`` checks, and B3 its records); returns N."""
     if bricks.top_depth + 2 > STACK_DEPTH:
         raise ValueError(f"top tree of depth {bricks.top_depth} is too deep "
                          f"for the kernel's stack of {STACK_DEPTH} slots")
@@ -198,14 +199,13 @@ def trace_bricks_cuda(bricks: BrickSet, ox: torch.Tensor, oy: torch.Tensor,
     if n == 0:
         return out_t, out_slot
     lib = load_library()
+    nodes, tris, gates = walk_pointers(bricks)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.pt_brick_trace_launch(
             ox.data_ptr(), oy.data_ptr(), oz.data_ptr(), dx.data_ptr(),
-            dy.data_ptr(), dz.data_ptr(), n, float(tnear),
-            bricks.top_boxes.data_ptr(), bricks.top_links.data_ptr(),
-            bricks.brick_data.data_ptr(), out_t.data_ptr(),
-            out_slot.data_ptr(), stream)
+            dy.data_ptr(), dz.data_ptr(), n, float(tnear), nodes, tris,
+            gates, out_t.data_ptr(), out_slot.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"brick_trace launch failed: CUDA error {err}")
     trace_bricks_cuda.launches += 1
@@ -332,15 +332,15 @@ def trace_bricks_full_cuda(bricks: BrickSet, ox: torch.Tensor,
               if collect_stats else None)
     if n:
         lib = load_library()
+        nodes, tris, gates = walk_pointers(bricks)
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
             err = lib.pt_brick_trace_full_launch(
                 ox.data_ptr(), oy.data_ptr(), oz.data_ptr(), dx.data_ptr(),
                 dy.data_ptr(), dz.data_ptr(), n, float(tnear),
                 active.data_ptr() if active is not None else None,
-                bricks.sph_rows.data_ptr(), bricks.num_spheres,
-                bricks.top_boxes.data_ptr(), bricks.top_links.data_ptr(),
-                bricks.brick_data.data_ptr(), out.data_ptr(),
+                bricks.sph_rows.data_ptr(), bricks.num_spheres, nodes, tris,
+                gates, bricks.brick_data.data_ptr(), out.data_ptr(),
                 counts.data_ptr() if collect_stats else None, stream)
         if err != 0:
             raise RuntimeError(f"brick_trace_full launch failed: CUDA error "

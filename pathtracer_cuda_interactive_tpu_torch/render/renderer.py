@@ -53,8 +53,11 @@ _LARGE_SETS = {"wavefront": BrickSet, "bricks": BrickSet, "mx": MXSet,
 
 
 def _render_mode(scene, large_scene_mode: str = "wavefront") -> str:
-    """The compute path for a scene: a ScenePack, or a prebuilt BrickSet,
-    MXSet or MX2Set, which pins the large-scene path:
+    """The compute path for a scene: a ScenePack, a prebuilt DeviceScene
+    (the megakernel's or the plain integrator's tensors: "megakernel" at up
+    to MEGAKERNEL_MAX_PRIMS primitives, "plain" above, as the JAX package
+    sends one to "xla" there), or a prebuilt BrickSet, MXSet or MX2Set,
+    which pins the large-scene path:
       * "megakernel" — at most MEGAKERNEL_MAX_PRIMS primitives;
       * "wavefront"  — larger scenes with triangles and at most
                        MEGAKERNEL_MAX_PRIMS spheres, the sorted wavefront;
@@ -75,6 +78,9 @@ def _render_mode(scene, large_scene_mode: str = "wavefront") -> str:
         return "mx"
     if isinstance(scene, BrickSet):
         return "bricks" if large_scene_mode == "bricks" else "wavefront"
+    if isinstance(scene, DeviceScene):
+        return ("megakernel" if scene.num_prims <= MEGAKERNEL_MAX_PRIMS
+                else "plain")
     if (scene.num_prims > MEGAKERNEL_MAX_PRIMS and scene.num_triangles > 0
             and scene.num_spheres <= MEGAKERNEL_MAX_PRIMS):
         return large_scene_mode
@@ -90,8 +96,9 @@ class ProgressiveRenderer:
     ``accum`` is a [H, W, 3] float32 tensor on ``device``, updated in place
     (``accum += new``) each step — the analog of the reference's persistent
     ``accumulationBuffer`` (main.cu:213-218).  ``scene`` is a ScenePack or
-    a prebuilt BrickSet, MXSet or MX2Set; ``mode`` is the compute path
-    (``_render_mode``; "bricks" with ``enable_nee`` takes "wavefront").
+    a prebuilt DeviceScene, BrickSet, MXSet or MX2Set; ``mode`` is the
+    compute path (``_render_mode``; "bricks" with ``enable_nee`` takes
+    "wavefront").
     ``stats`` holds what the wavefront, "mx" and "mx2" paths have counted so
     far: the waves traced ("waves", also ``waves``) and their rays ("rays"),
     and on "mx" the rounds run ("rounds") and the packet-and-brick products
@@ -105,20 +112,27 @@ class ProgressiveRenderer:
             # the persistent brick render has no NEE hook; the sorted
             # wavefront (same BrickSet) has
             self.mode = "wavefront"
+        walks = self.mode == "bricks"
         if self.mode == "wavefront":
-            parse_engine(config.wavefront_trace)   # raises on a bad name
+            # raises on a bad name; "slim[N]" and "slimg[N]" run kernel B2
+            walks = parse_engine(config.wavefront_trace)[0] in ("slim",
+                                                                "slimg")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             # never fall back to another device
             raise RuntimeError(f"device {self.device} requested but CUDA "
                                "is not available")
-        if isinstance(scene, (BrickSet, MXSet, MX2Set)):
+        if isinstance(scene, (DeviceScene, BrickSet, MXSet, MX2Set)):
             self.scene = scene.to(self.device)
         elif self.mode in _LARGE_SETS:
             self.scene = _LARGE_SETS[self.mode].from_pack(scene).to(
                 self.device)
         else:
             self.scene = DeviceScene.from_pack(scene).to(self.device)
+        if walks and self.device.type == "cuda":
+            # kernels B2 and B6 read the set's walk table: build it now,
+            # as set-up, not inside the first frame
+            self.scene.walk_table()
         self.stats = {}
         self.camera = camera
         self.initial_camera = camera

@@ -17,12 +17,15 @@ from pathtracer_cuda_interactive_tpu.render.renderer import (
 from pathtracer_cuda_interactive_tpu.utils.config import (
     RenderConfig as JaxRenderConfig)
 from pathtracer_cuda_interactive_tpu_torch import SCENES_DIR
-from pathtracer_cuda_interactive_tpu_torch.models.scenepack import pack_scene
+from pathtracer_cuda_interactive_tpu_torch.models.device_scene import (
+    DeviceScene)
+from pathtracer_cuda_interactive_tpu_torch.models.scenepack import (
+    load_scene, pack_scene)
 from pathtracer_cuda_interactive_tpu_torch.ops.camera import Camera
 from pathtracer_cuda_interactive_tpu_torch.render import (
     offline, profile_wavefront)
 from pathtracer_cuda_interactive_tpu_torch.render.renderer import (
-    ProgressiveRenderer)
+    ProgressiveRenderer, _render_mode)
 from pathtracer_cuda_interactive_tpu_torch.utils import image
 from pathtracer_cuda_interactive_tpu_torch.utils.config import RenderConfig
 
@@ -218,6 +221,67 @@ def test_large_sphere_scene_takes_the_plain_path():
     assert torch.equal(deep.accum, integrator.render_samples(
         deep.scene, deep._cam_data, W, H, 0, 2, max_depth=3))
     assert deep.waves == 0
+
+
+def _device_scene(which):
+    """(ScenePack, its DeviceScene, camera) of the small Cornell box, of
+    blob_box (5,133 primitives) or of the 513-sphere grid."""
+    from pathtracer_cuda_interactive_tpu_torch.models import ir
+    if which == "spheres513":
+        pack = pack_scene(_sphere_grid(ir))
+        cam = Camera((0.0, 0.0, 0.0), (0.0, 0.0, -1.0), (0.0, 1.0, 0.0), 60.0)
+    else:
+        pack, parsed = load_scene(CBOX if which == "cbox" else BLOB_BOX)
+        cam = Camera.from_parsed(parsed.camera)
+    return pack, DeviceScene.from_pack(pack), cam
+
+
+@pytest.mark.parametrize("which,large_scene_mode,mode", [
+    ("cbox", "wavefront", "megakernel"), ("cbox", "bricks", "megakernel"),
+    ("spheres513", "wavefront", "plain"), ("blob", "wavefront", "plain"),
+    ("blob", "bricks", "plain"), ("blob", "mx2", "plain")])
+def test_render_mode_of_a_prebuilt_device_scene(which, large_scene_mode,
+                                                mode):
+    """A DeviceScene holds no bricks: at most 512 primitives take the
+    megakernel, more the plain integrator, whatever the large-scene mode
+    (the JAX renderer sends such a scene to "xla")."""
+    _, scene, _ = _device_scene(which)
+    assert _render_mode(scene, large_scene_mode) == mode
+    with pytest.raises(ValueError, match="unknown large_scene_mode"):
+        _render_mode(scene, "nope")
+
+
+@pytest.mark.parametrize("which,mode", [("cbox", "megakernel"),
+                                        ("spheres513", "plain")])
+def test_prebuilt_device_scene_renders_like_its_pack(which, mode):
+    pack, scene, cam = _device_scene(which)
+    config = RenderConfig(max_depth=3)
+    ours = ProgressiveRenderer(scene, cam, W, H, config, device="cpu")
+    ref = ProgressiveRenderer(pack, cam, W, H, config, device="cpu")
+    assert ours.mode == ref.mode == mode
+    assert isinstance(ours.scene, DeviceScene)
+    for _ in range(2):
+        ours.step()
+        ref.step()
+    assert ours.sample_count == 4 and torch.equal(ours.accum, ref.accum)
+    assert float(ours.accum.mean()) > 0.0 and float(ours.accum.std()) > 0.0
+
+
+def test_prebuilt_large_device_scene_matches_the_wavefront():
+    """blob_box as a DeviceScene takes the plain integrator; as a ScenePack
+    the sorted wavefront.  The two images agree at the criterion of
+    tests/test_wavefront.py:37-39."""
+    pack, scene, cam = _device_scene("blob")
+    config = RenderConfig(max_depth=3, samples_per_frame=1)
+    ours = ProgressiveRenderer(scene, cam, W, H, config, device="cpu")
+    ref = ProgressiveRenderer(pack, cam, W, H, config, device="cpu")
+    assert (ours.mode, ref.mode) == ("plain", "wavefront")
+    ours.step()
+    ref.step()
+    got, want = ours.accum.numpy(), ref.accum.numpy()
+    bad = ~np.isclose(got, want, rtol=1e-4, atol=1e-4)
+    assert bad.mean() < 1e-3 and np.abs(got - want).mean() < 1e-3
+    assert want.mean() > 0.0 and ours.waves == 0
 
 
 def test_config_matches_the_jax_defaults():
