@@ -20,7 +20,11 @@ JAX, and fails with a non-zero exit code if any phase fails:
 2e. the build of csrc/mx2_trace.cu (kernel B7), the sixth source of the
    same parallel build, with its time and ptxas report;
 3. the megakernel against its plain torch version on the card, on the
-   in-repo sphere, Cornell-box and point-light scenes at 160x120 and on the
+   in-repo sphere, Cornell-box and point-light scenes and on two larger
+   tables made from the Cornell box (models/subdivide.py::table_scenes: 42
+   spheres with 128 triangles, which a warp takes lane by lane while most
+   of its lanes hold a ray and together after, and 512 triangles, which it
+   always takes together) at 160x120, and on the
    Cornell box at the main path's 640x480, each at depth 4 (shallow
    criterion) and depth 12 (statistical criterion), with both versions
    timed at the main path's shape;
@@ -56,7 +60,10 @@ JAX, and fails with a non-zero exit code if any phase fails:
    the primary and first-bounce waves of the same two 640x480, 2-sample
    renders through render_samples_mx2 (its own waves: the "mx2" path sorts
    a bounce wave by "mort_oct", the wavefront by "sig_mort"): t, slot and
-   the four counters equal to its plain version bit for bit; against kernel B2, t within rtol 1e-4 on all but
+   the four counters equal to its plain version bit for bit, and on
+   blob_box also equal, with the fifth counter (the visits that ended at
+   the superbrick's own box), to the plain version with the kernel's early
+   votes switched on; against kernel B2, t within rtol 1e-4 on all but
    1e-3 of the rays (the Plucker form rounds otherwise; slots are not
    compared, the two sets order triangles differently); whole "mx2"
    renders at 160x120, depth 4 (shallow) and 12 (statistical), NEE off and
@@ -106,8 +113,9 @@ JAX, and fails with a non-zero exit code if any phase fails:
 Its last two lines are a JSON object describing each kernel (with its
 bound: the larger of the bytes the function must move over the card's
 memory rate and the operations this run's data need over its FP32 rate)
-and then {"ok": true, "device": {...}}.  ``--out DIR`` also writes the PNGs and a
-results JSON into DIR.
+and then {"ok": true, "device": {...}}.  Lines of the form ``[123.4 s]
+phase`` give the seconds since the start at the end of each phase.
+``--out DIR`` also writes the PNGs and a results JSON into DIR.
 """
 
 from __future__ import annotations
@@ -279,7 +287,7 @@ def main(argv=None) -> int:
     from pathtracer_cuda_interactive_tpu_torch.models.scenepack import (
         load_scene, pack_scene)
     from pathtracer_cuda_interactive_tpu_torch.models.subdivide import (
-        subdivide_scene)
+        subdivide_scene, table_scenes)
     from pathtracer_cuda_interactive_tpu_torch.ops import brickkernel as bk
     from pathtracer_cuda_interactive_tpu_torch.ops import cuda_build
     from pathtracer_cuda_interactive_tpu_torch.ops import integrator
@@ -300,6 +308,11 @@ def main(argv=None) -> int:
 
     dev = torch.device("cuda")
     results = {}
+    started = time.perf_counter()
+
+    def stamp(phase):
+        """Where the run's time goes: seconds since the start, by phase."""
+        print(f"[{time.perf_counter() - started:.1f} s] {phase}")
 
     # -- 1. the card ------------------------------------------------------
     card = card_line()
@@ -335,16 +348,26 @@ def main(argv=None) -> int:
                    pair_trace_build_s=built[pt.SOURCE],
                    mx2_trace_build_s=built[mx2.SOURCE])
 
+    stamp("builds done")
     # -- 3. kernel against its plain version on the card ------------------
+    # the two larger tables: 42 spheres with 128 triangles (more than one
+    # primitive of each kind a lane; a warp mixes lane by lane and together)
+    # and 512 triangles (the limit; always together)
+    tables = table_scenes(parse_scene(str(SCENES_DIR / "cbox_rect.xml")))
+
     def load(name, width, height):
-        pack, parsed = load_scene(str(SCENES_DIR / f"{name}.xml"))
+        parsed = tables.get(name) or parse_scene(
+            str(SCENES_DIR / f"{name}.xml"))
         cd = camera_ray_data(Camera.from_parsed(parsed.camera), width, height)
-        return DeviceScene.from_pack(pack).to(dev), torch.from_numpy(cd).to(dev)
+        return (DeviceScene.from_pack(pack_scene(parsed)).to(dev),
+                torch.from_numpy(cd).to(dev))
 
     comparisons = []
     cases = [("spheres", False, SMALL_W, SMALL_H),
              ("cbox_rect", False, SMALL_W, SMALL_H),
              ("pointlight", True, SMALL_W, SMALL_H),
+             ("mixed", False, SMALL_W, SMALL_H),
+             ("full", False, SMALL_W, SMALL_H),
              ("cbox_rect", False, MAIN_W, MAIN_H)]
     for name, nee, width, height in cases:
         scene, cd = load(name, width, height)
@@ -358,8 +381,9 @@ def main(argv=None) -> int:
             res.update(scene=name, nee=nee, width=width, height=height,
                        spp=SPP, depth=depth)
             comparisons.append(res)
-            print(f"kernel vs plain {name} nee={nee} {width}x{height} "
-                  f"depth {depth} ({res['criterion']}): "
+            print(f"kernel vs plain {name} ({scene.num_spheres} spheres, "
+                  f"{scene.num_triangles} triangles) nee={nee} "
+                  f"{width}x{height} depth {depth} ({res['criterion']}): "
                   f"mismatch share {res['mismatch_share']:.3e}, "
                   f"max abs err {res['max_abs_err']:.3e}, "
                   f"mean abs err {res['mean_abs_err']:.3e} "
@@ -406,6 +430,7 @@ def main(argv=None) -> int:
         float(rays) * scene.num_prims * TRI_OPS)
     del scene, cd
 
+    stamp("3 done")
     # -- 3b. kernel B2 against its plain version on the card ---------------
     def capture_waves(bricks, cd, width, height, n_waves):
         """The first waves of a plain-traced wavefront render of SPP
@@ -576,11 +601,14 @@ def main(argv=None) -> int:
                       f"-> {'ok' if res['ok'] else 'FAIL'}")
         return out
 
-    def compare_b7(mxs, bricks, waves, label):
+    def compare_b7(mxs, bricks, waves, label, early=False):
         """3g: kernel B7 on each wave (of ``capture_mx2_waves``) against its
-        plain version (t, slot and counters bit for bit) and against kernel
-        B2's t on the same rays over the same triangles in a BrickSet (rtol
-        1e-4 on all but 1e-3 of the rays)."""
+        plain version (t, slot and the four counters bit for bit; with
+        ``early`` also against the plain version with the kernel's early
+        votes switched on, whose fifth counter, the visits that ended at the
+        superbrick's own box, must be the kernel's) and against kernel B2's
+        t on the same rays over the same triangles in a BrickSet (rtol 1e-4
+        on all but 1e-3 of the rays)."""
         out = []
         for (org, dirn, tnear), name in zip(waves, ("primary", "bounce 1")):
             brk, ent, cnt = pt.visit_lists(mxs, org, dirn, tnear, 1)
@@ -600,15 +628,24 @@ def main(argv=None) -> int:
             both = torch.isfinite(t) & torch.isfinite(ref_t)
             err = float((t[both] - ref_t[both]).abs().max()) if both.any() \
                 else 0.0
-            listed, visited, voted, tested = seen.tolist()
+            listed, visited, voted, tested, boxed_out = seen.tolist()
+            same = seen[:4].tolist() == ref_seen.tolist()
+            if early:
+                early_t, early_slot, early_seen = mx2.trace_mx2_plain(
+                    mxs, org, dirn, tnear, brk, ent, cnt, collect_stats=True,
+                    early_votes=True)
+                same = (same and early_seen.tolist() == seen.tolist()
+                        and torch.equal(early_slot, slot)
+                        and torch.equal(early_t.view(torch.int32),
+                                        t.view(torch.int32)))
             packets = int(cnt.numel())
-            res = {"ok": vs_plain == 0.0 and seen.tolist() == ref_seen.tolist()
+            res = {"ok": vs_plain == 0.0 and same
                    and vs_b2 <= 1e-3, "scene": label, "wave": name,
                    "rays": int(t.numel()), "packets": packets,
                    "mismatch_share": vs_plain, "t_off_share_vs_b2": vs_b2,
                    "max_abs_err": err, "plain_ms": start.elapsed_time(stop),
                    "listed": listed, "visited": visited, "voted": voted,
-                   "tested": tested,
+                   "tested": tested, "boxed_out": boxed_out,
                    "plain_counters": ref_seen.tolist(),
                    "max_listed": int(cnt.max())}
             out.append(res)
@@ -620,7 +657,10 @@ def main(argv=None) -> int:
                   f"listed (max {res['max_listed']} of {mxs.num_bricks}), "
                   f"{visited / packets:.2f} visited, "
                   f"{voted / max(visited, 1):.4f} subs voted in per visit "
-                  f"of {tested / max(visited, 1):.4f} slab-tested "
+                  f"of {tested / max(visited, 1):.4f} valid, {boxed_out} "
+                  f"visits ({boxed_out / max(visited, 1):.4f}) ended at the "
+                  f"superbrick's own box"
+                  f"{' (as in the plain version with early votes)' * early} "
                   f"-> {'ok' if res['ok'] else 'FAIL'}")
         return out
 
@@ -661,7 +701,7 @@ def main(argv=None) -> int:
     blob_mx2 = MX2Set.from_pack(blob_pack).to(dev)
     b7_checks = compare_b7(
         blob_mx2, blob, capture_mx2_waves(blob_mx2, cd, MAIN_W, MAIN_H, 2),
-        "blob_box")
+        "blob_box", early=True)
     del blob_waves
     b2_renders = []
     cd = torch.from_numpy(camera_ray_data(blob_cam, SMALL_W, SMALL_H)).to(dev)
@@ -717,6 +757,7 @@ def main(argv=None) -> int:
     require_agreement("B7", b7_checks + b7_renders)
     require_agreement("mx", mx_render_checks)
 
+    stamp("3b-3h on blob_box done")
     # the large scene of the main path: blob_box subdivided three levels
     t0 = time.perf_counter()
     big_parsed = subdivide_scene(parse_scene(str(SCENES_DIR / "blob_box.xml")),
@@ -920,6 +961,7 @@ def main(argv=None) -> int:
         128 * (b7_wave["tested"] * BOX_OPS
                + b7_wave["voted"] * (2 * mx2.FEATURES - 1) * 128))
 
+    stamp("large-scene waves and timings done")
     # -- 3d. kernel B6 on the large scene: agreement at depth 4, and times
     # at the main path's shape
     b6_checks.append(compare_render(big, cd, MAIN_W, MAIN_H, 4, wave_check,
@@ -974,6 +1016,7 @@ def main(argv=None) -> int:
         for wrapper in counters:
             wrapper.launches = 0
 
+    stamp("3d done")
     # -- 4. the main path ---------------------------------------------------
     zero_counts()
     renderer = ProgressiveRenderer.from_xml(
@@ -1030,6 +1073,7 @@ def main(argv=None) -> int:
                    msamples_per_s=msamples, launches=launches,
                    image_mean=float(img.mean()))
 
+    stamp("4 done")
     # -- 4b. the large-scene main path ----------------------------------------
     stats = {}
     wf.render_samples_wavefront(big, cd, MAIN_W, MAIN_H, 0, SPP, stats=stats)
@@ -1102,6 +1146,7 @@ def main(argv=None) -> int:
                    large_image_mean=float(big_img.mean()))
     del big_renderer
 
+    stamp("4b done")
     # -- 4c. the large scene's "bricks" path (kernel B6), same shape --------
     bricks_config = RenderConfig(large_scene_mode="bricks")
     bricks_renderer = ProgressiveRenderer(big, big_cam, MAIN_W, MAIN_H,
@@ -1163,6 +1208,7 @@ def main(argv=None) -> int:
                    bricks_image_mean=float(bricks_img.mean()))
     del bricks_renderer
 
+    stamp("4c done")
     # -- 4e, 4f, 4g. the large scene through the opt-in engines and through
     # "mx2", same shape
     def drive_engine(scene, config, mode, wrapper, kernel):
@@ -1247,6 +1293,7 @@ def main(argv=None) -> int:
                    b7_checks=b7_checks, b7_renders=b7_renders,
                    mx_render_checks=mx_render_checks)
 
+    stamp("4e-4g done")
     # -- 4h. the "mx" path (torch ops, no kernel), one frame at depth 4 -----
     mx_depth = 4
     mx_renderer = ProgressiveRenderer(
@@ -1295,6 +1342,7 @@ def main(argv=None) -> int:
                           "vs_wavefront": against}
     del big, mx_renderer
 
+    stamp("4h done")
     # -- 4d. the kernel-stats entry point (kernel B3) ----------------------
     zero_counts()
     if kernel_stats.main(["--out", args.out] if args.out else []) != 0:
@@ -1307,6 +1355,7 @@ def main(argv=None) -> int:
     print(f"kernel_stats: B3 launches {b3_launches}")
     results.update(b3_launches=b3_launches)
 
+    stamp("4d done")
     # -- 5. the offline CLI on cuda -----------------------------------------
     cli_png = mk.BUILD_DIR / "chip_smoke_cli.png"
     before = mk.megakernel_cuda.launches

@@ -79,8 +79,6 @@ constexpr int kSubRow = 128 * 128;         // offset of the chunk-gate row
 constexpr int kStack = 192;                // models/bricks.py::STACK_DEPTH
 constexpr int kNodeVecs = 4;               // float4 per WalkTable node record
 constexpr int kChunkFloats = 9 * kSubPrims;     // WalkTable floats per chunk
-constexpr unsigned kFullWarp = 0xffffffffu;
-constexpr unsigned kInfBits = 0x7f800000u;
 
 // min / max that return NaN when either input is NaN (torch.minimum semantics)
 __device__ __forceinline__ float nan_min(float a, float b) {
@@ -141,11 +139,6 @@ __device__ __forceinline__ const float* slot_row(const float* brick_data, int sl
 struct WalkCounts {
   int nodes, bricks, chunks;
 };
-
-__device__ __forceinline__ V3 shfl3(V3 a, int src) {
-  return {__shfl_sync(kFullWarp, a.x, src), __shfl_sync(kFullWarp, a.y, src),
-          __shfl_sync(kFullWarp, a.z, src)};
-}
 
 // Closest triangle hit over the bricks, below the given best_t.  Updates
 // best_t and best_slot where a triangle is strictly nearer; kFull also

@@ -48,6 +48,16 @@ __device__ __forceinline__ V3 normalize(V3 a) {
 
 __device__ __forceinline__ V3 load3(const float* p) { return {p[0], p[1], p[2]}; }
 
+// -- a warp working together --------------------------------------------------
+
+constexpr unsigned kFullWarp = 0xffffffffu;
+constexpr unsigned kInfBits = 0x7f800000u;   // the bits of +inf
+
+__device__ __forceinline__ V3 shfl3(V3 a, int src) {
+  return {__shfl_sync(kFullWarp, a.x, src), __shfl_sync(kFullWarp, a.y, src),
+          __shfl_sync(kFullWarp, a.z, src)};
+}
+
 // -- PCG-RXS-M-XS 32/32, bit-exact with ops/rng.py --------------------------
 
 __device__ __forceinline__ uint32_t pcg_permute(uint32_t s) {

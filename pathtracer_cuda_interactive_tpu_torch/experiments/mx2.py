@@ -75,8 +75,43 @@ def _ray_features(mx: MX2Set, org: Vec3, dirn: Vec3):
             torch.ones_like(org.x))
 
 
+def _slab_interval(box, po: Vec3, pinv: Vec3):
+    """(tn, tf) of ops/geometry.py::slab_interval for boxes [m, >= 6] (min
+    xyz, max xyz) against rays [m, 128]; NaN propagates."""
+    col = lambda f: box[:, f:f + 1]
+    tx0 = (col(0) - po.x) * pinv.x
+    tx1 = (col(3) - po.x) * pinv.x
+    ty0 = (col(1) - po.y) * pinv.y
+    ty1 = (col(4) - po.y) * pinv.y
+    tz0 = (col(2) - po.z) * pinv.z
+    tz1 = (col(5) - po.z) * pinv.z
+    tn = torch.maximum(torch.maximum(torch.minimum(tx0, tx1),
+                                     torch.minimum(ty0, ty1)),
+                       torch.minimum(tz0, tz1))
+    tf = torch.minimum(torch.minimum(torch.maximum(tx0, tx1),
+                                     torch.maximum(ty0, ty1)),
+                       torch.maximum(tz0, tz1))
+    return tn, tf
+
+
+def box_hit(box, po: Vec3, pinv: Vec3, t_max):
+    """The exact slab test of a sub's box: the ray meets it at or after 0 and
+    no later than ``t_max``; a NaN (0 * inf on a box plane) is a miss."""
+    tn, tf = _slab_interval(box, po, pinv)
+    return (tf >= torch.maximum(tn, torch.zeros_like(tn))) & (tn <= t_max)
+
+
+def box_maybe(box, po: Vec3, pinv: Vec3, t_max):
+    """The same test with a NaN counted as a hit: what kernel B7 asks of a
+    superbrick's own box before its 16 subs.  For a box that contains other
+    boxes it is true wherever ``box_hit`` is true for one of them."""
+    tn, tf = _slab_interval(box, po, pinv)
+    return ~(tf < torch.maximum(tn, torch.zeros_like(tn))) & ~(tn > t_max)
+
+
 def trace_mx2_plain(mx: MX2Set, org: Vec3, dirn: Vec3, tnear: float,
-                    brk, ent, cnt, collect_stats: bool = False):
+                    brk, ent, cnt, collect_stats: bool = False,
+                    early_votes: bool = False):
     """Kernel B7's plain version: (t f32 [N], slot i32 [N]) of the rays ([N]
     components; ray i is in packet i // 128) over their packets' visit lists
     (``visit_lists``: brk, ent [P, B], cnt [P]), vectorised over packets.
@@ -94,7 +129,15 @@ def trace_mx2_plain(mx: MX2Set, org: Vec3, dirn: Vec3, tnear: float,
     superbricks a strict ``t < best``.  With ``collect_stats`` also an
     int64 [4] tensor: superbricks listed, visited, subs voted in, and subs
     slab-tested (the valid subs of the superbricks visited), summed over
-    packets."""
+    packets.
+
+    ``early_votes`` switches on the two votes the kernel takes in front of
+    the exact ones, which can only say no: a visit ends at once when no ray
+    passes ``box_maybe`` on the superbrick's own box (``MX2Set.visit_boxes``)
+    at its best t, and otherwise a sub gets its exact vote only if some ray
+    passed its box at the best t on entry to the visit.  (t, slot) and the
+    four counters are the same either way; the counters then carry a fifth,
+    the visits that ended at the superbrick's box."""
     dev = org.x.device
     n = int(org.x.numel())
     P = int(cnt.numel())
@@ -112,7 +155,8 @@ def trace_mx2_plain(mx: MX2Set, org: Vec3, dirn: Vec3, tnear: float,
     subbox = mx.subbox.view(-1, NUM_SUBS, 8)
     coeff = mx.coeff.view(-1, NUM_SUBS, 16, 4, SUB_PRIMS)
     tri = torch.arange(SUB_PRIMS, dtype=torch.int32, device=dev)
-    visited = voted = tested = 0
+    visit_boxes = mx.visit_boxes() if early_votes else None
+    visited = voted = tested = boxed_out = 0
     going = cnt > 0
     for r in range(int(cnt.max()) if P else 0):
         # past a packet's list the bound is inf, which no best t exceeds
@@ -122,30 +166,30 @@ def trace_mx2_plain(mx: MX2Set, org: Vec3, dirn: Vec3, tnear: float,
             break
         visited += int(pk.numel())
         brick = brk[pk, r].to(torch.int64)
+        tested += int((subbox[brick, :, 6] > 0.0).sum())
+        if early_votes:
+            keep = (box_maybe(visit_boxes[brick], Vec3(*(c[pk] for c in o)),
+                              Vec3(*(c[pk] for c in inv)), best_t[pk])
+                    & live[pk]).any(dim=1)
+            boxed_out += int((~keep).sum())
+            pk, brick = pk[keep], brick[keep]
+            if pk.numel() == 0:
+                continue
         po = Vec3(*(c[pk] for c in o))
         pinv = Vec3(*(c[pk] for c in inv))
         plive = live[pk]
         bt, bs = best_t[pk], best_slot[pk]
+        if early_votes:
+            on_entry = torch.stack(
+                [(box_hit(subbox[brick, s], po, pinv, bt) & plive).any(dim=1)
+                 for s in range(NUM_SUBS)], dim=1)
         for s in range(NUM_SUBS):
             box = subbox[brick, s]                            # [m, 8]
-            col = lambda f: box[:, f:f + 1]
-            tx0 = (col(0) - po.x) * pinv.x
-            tx1 = (col(3) - po.x) * pinv.x
-            ty0 = (col(1) - po.y) * pinv.y
-            ty1 = (col(4) - po.y) * pinv.y
-            tz0 = (col(2) - po.z) * pinv.z
-            tz1 = (col(5) - po.z) * pinv.z
-            tn = torch.maximum(torch.maximum(torch.minimum(tx0, tx1),
-                                             torch.minimum(ty0, ty1)),
-                               torch.minimum(tz0, tz1))
-            tf = torch.minimum(torch.minimum(torch.maximum(tx0, tx1),
-                                             torch.maximum(ty0, ty1)),
-                               torch.maximum(tz0, tz1))
-            hitm = ((tf >= torch.maximum(tn, torch.zeros_like(tn)))
-                    & (tn <= bt) & plive)
-            valid_sub = box[:, 6] > 0.0
-            tested += int(valid_sub.sum())
-            vi = torch.nonzero(hitm.any(dim=1) & valid_sub).reshape(-1)
+            hitm = box_hit(box, po, pinv, bt) & plive
+            vote = hitm.any(dim=1) & (box[:, 6] > 0.0)
+            if early_votes:
+                vote = vote & on_entry[:, s]
+            vi = torch.nonzero(vote).reshape(-1)
             if vi.numel() == 0:
                 continue
             voted += int(vi.numel())
@@ -175,7 +219,8 @@ def trace_mx2_plain(mx: MX2Set, org: Vec3, dirn: Vec3, tnear: float,
         best_t[pk], best_slot[pk] = bt, bs
     t, slot = best_t.reshape(-1)[:n], best_slot.reshape(-1)[:n]
     if collect_stats:
-        return t, slot, torch.tensor([int(cnt.sum()), visited, voted, tested],
+        seen = [int(cnt.sum()), visited, voted, tested]
+        return t, slot, torch.tensor(seen + [boxed_out] * early_votes,
                                      dtype=torch.int64, device=dev)
     return t, slot
 
@@ -199,7 +244,7 @@ def load_library() -> ctypes.CDLL:
         fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr,   # ox oy oz dx dy dz
                        i32, ctypes.c_float, ptr,       # n, tnear, shift
                        i32, ptr, ptr, ptr, i32,        # P, brk, ent, cnt, B
-                       ptr, ptr,                       # subbox, coeff
+                       ptr, ptr, ptr,                  # boxes, subbox, coeff
                        ptr, ptr,                       # out_t, out_slot
                        ptr, ptr]                       # stats, stream
         fn.restype = ctypes.c_int
@@ -216,8 +261,10 @@ def trace_mx2_cuda(mx: MX2Set, ox: torch.Tensor, oy: torch.Tensor,
     of the N rays (contiguous float32 [N] CUDA tensors; ray i is in packet
     i // 128) over its packet's visit list (``visit_lists``).  Returns fresh
     (t [N] f32, inf on a miss; slot [N] i32, -1 on a miss), and with
-    ``collect_stats`` also an int64 [4] tensor of superbricks listed,
-    visited, subs voted in, and subs slab-tested, summed over the packets.  Adds one to
+    ``collect_stats`` also an int64 [5] tensor of superbricks listed,
+    visited, subs voted in, subs slab-tested and visits that ended at the
+    superbrick's own box, summed over the packets (the counters of
+    ``trace_mx2_plain`` with ``early_votes``).  Adds one to
     ``trace_mx2_cuda.launches`` per launch; an empty wave launches
     nothing."""
     device = ox.device
@@ -243,17 +290,19 @@ def trace_mx2_cuda(mx: MX2Set, ox: torch.Tensor, oy: torch.Tensor,
                              f"{t.dtype} {list(t.shape)} on {t.device}")
     out_t = torch.empty(n, dtype=torch.float32, device=device)
     out_slot = torch.empty(n, dtype=torch.int32, device=device)
-    stats = (torch.zeros(4, dtype=torch.int64, device=device)
+    stats = (torch.zeros(5, dtype=torch.int64, device=device)
              if collect_stats else None)
     if n:
         lib = load_library()
+        boxes = mx.visit_boxes()
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
             err = lib.pt_mx2_trace_launch(
                 ox.data_ptr(), oy.data_ptr(), oz.data_ptr(), dx.data_ptr(),
                 dy.data_ptr(), dz.data_ptr(), n, float(tnear),
                 mx.shift.data_ptr(), P, brk.data_ptr(), ent.data_ptr(),
-                cnt.data_ptr(), B, mx.subbox.data_ptr(), mx.coeff.data_ptr(),
+                cnt.data_ptr(), B, boxes.data_ptr(), mx.subbox.data_ptr(),
+                mx.coeff.data_ptr(),
                 out_t.data_ptr(), out_slot.data_ptr(),
                 stats.data_ptr() if collect_stats else None, stream)
         if err != 0:

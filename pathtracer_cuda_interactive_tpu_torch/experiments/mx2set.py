@@ -68,9 +68,28 @@ class MX2Set(TensorSet):
 
     _STATIC = ("num_spheres", "num_bricks")
 
+    def __post_init__(self):
+        self._visit_boxes = None
+
     @classmethod
     def from_pack(cls, pack: ScenePack, device="cpu") -> "MX2Set":
         return cls.from_numpy(device=device, **build_mx2set(pack))
+
+    def visit_boxes(self) -> torch.Tensor:
+        """[B, 8] f32, one 32-byte record per superbrick for kernel B7's vote
+        on a whole superbrick: floats 0..5 its box (``brick_lo``,
+        ``brick_hi``), 6 the number of its valid subs, 7 zero.  Derived in
+        torch ops on the set's device at the first call and kept (a copy made
+        by ``.to`` derives its own).  The box holds every valid sub's box:
+        both are minima and maxima of the same triangles' bounds, and
+        rounding to float32 is monotone."""
+        if self._visit_boxes is None:
+            valid = self.subbox.view(-1, NUM_SUBS, 8)[:, :, 6] > 0.0
+            self._visit_boxes = torch.cat(
+                [self.brick_lo, self.brick_hi,
+                 valid.sum(dim=1, keepdim=True).to(torch.float32),
+                 torch.zeros_like(self.brick_lo[:, :1])], dim=1).contiguous()
+        return self._visit_boxes
 
 
 def build_mx2set(pack: ScenePack) -> dict:

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from .ir import ParsedScene, ParsedTriangleMesh
+from .ir import ParsedScene, ParsedSphere, ParsedTriangleMesh
 
 
 def subdivide_mesh(mesh: ParsedTriangleMesh,
@@ -76,3 +76,33 @@ def subdivide_scene(parsed: ParsedScene, levels: int = 1,
                        lights=parsed.lights, shapes=shapes,
                        background_color=parsed.background_color,
                        samples_per_pixel=parsed.samples_per_pixel)
+
+
+def table_scenes(parsed: ParsedScene) -> dict:
+    """Two larger primitive tables from a small all-triangle scene (the rect
+    Cornell box, 32 triangles), for the megakernel's cases above one
+    primitive a lane: ``mixed`` is every mesh subdivided once (128
+    triangles) with 42 small spheres on a 7 x 6 grid in the middle of the
+    scene's box, their materials taken in turn from the scene's (spheres
+    and triangles in one table, more than 32 of each), and ``full`` every
+    mesh subdivided twice (512 triangles, the megakernel's limit)."""
+    once = subdivide_scene(parsed, levels=1, min_tris=1)
+    pos = np.concatenate([s.positions for s in parsed.shapes
+                          if isinstance(s, ParsedTriangleMesh)])
+    lo, hi = pos.min(0), pos.max(0)
+    size = hi - lo
+    spheres = [
+        ParsedSphere(material_id=(i + j) % len(parsed.materials),
+                     area_light_id=-1,
+                     center=(lo + size * np.array([(i + 1) / 8.0,
+                                                   (j + 1) / 7.0,
+                                                   0.3 + 0.05 * ((i + j) % 5)])
+                             ).astype(np.float32),
+                     radius=float(0.04 * size.min()))
+        for i in range(7) for j in range(6)]
+    mixed = ParsedScene(camera=once.camera, materials=once.materials,
+                        lights=once.lights, shapes=once.shapes + spheres,
+                        background_color=once.background_color,
+                        samples_per_pixel=once.samples_per_pixel)
+    return {"mixed": mixed,
+            "full": subdivide_scene(parsed, levels=2, min_tris=1)}

@@ -184,7 +184,7 @@ def main(argv=None) -> int:
         brk, ent, cnt = pt.visit_lists(superbricks, org, dirn, tnear, 1)
         _, _, seen = mx2.trace_mx2_cuda(superbricks, *org, *dirn, tnear, brk,
                                         ent, cnt, collect_stats=True)
-        listed, visited, voted, tested = seen.tolist()
+        listed, visited, voted, tested, boxed_out = seen.tolist()
         b7 = {"kernel_ms": _cuda_ms(lambda: mx2.trace_mx2_cuda(
                   superbricks, *org, *dirn, tnear, brk, ent, cnt)),
               "lists_ms": _cuda_ms(lambda: pt.visit_lists(
@@ -195,7 +195,8 @@ def main(argv=None) -> int:
               "max_listed": int(cnt.max()),
               "skipped_share": 1.0 - visited / max(listed, 1),
               "subs_per_visit": voted / max(visited, 1),
-              "subs_tested_per_visit": tested / max(visited, 1)}
+              "subs_tested_per_visit": tested / max(visited, 1),
+              "boxed_out_share": boxed_out / max(visited, 1)}
         b2_again_ms = _cuda_ms(b2)
         _, counts = wf.trace_bricks_full_cuda(bricks, *org, *dirn, tnear,
                                               collect_stats=True)
@@ -223,7 +224,9 @@ def main(argv=None) -> int:
               f"{b7['visited_per_packet']:.2f} visited, early-out skips "
               f"{b7['skipped_share']:.4f} of the listed visits, "
               f"{b7['subs_per_visit']:.4f} subs voted in per visit of "
-              f"{b7['subs_tested_per_visit']:.4f} slab-tested")
+              f"{b7['subs_tested_per_visit']:.4f} valid, "
+              f"{b7['boxed_out_share']:.4f} of the visits ended at the "
+              f"superbrick's own box")
         for key in COUNTERS:
             s = summary[key]
             print(f"  {key} per ray: mean {s['mean']:.4f}, max "

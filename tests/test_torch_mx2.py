@@ -18,7 +18,12 @@ package on the CPU, and the kernel against its plain version on a card.
   and against the port's plain integrator at depth 3, NEE off and on, at
   the criterion of tests/test_mx2.py:54-56; samples add and a render
   repeats bit for bit;
-* the renderer with ``large_scene_mode="mx2"`` and with a prebuilt MX2Set.
+* the renderer with ``large_scene_mode="mx2"`` and with a prebuilt MX2Set;
+* what kernel B7's early votes rest on: every superbrick's box holds its
+  valid subs' boxes, ``box_maybe`` on it is true wherever ``box_hit`` is true
+  for one of them (random rays, axis-parallel rays, origins on box planes),
+  ``MX2Set.visit_boxes`` is the set's own numbers, and the plain walk with
+  the early votes switched on gives the plain walk's t, slot and counters.
 
 The cases marked ``cuda`` skip without a card and import no jax, so on the
 card this file runs with ``python -m pytest --noconftest -m cuda
@@ -381,6 +386,91 @@ def test_renderer_runs_mx2_on_the_cpu(blob_mx2):
 
 # -- on the card ---------------------------------------------------------------
 
+# -- the votes kernel B7 takes before the exact ones ------------------------------
+
+def _edge_rays(mx, n, seed):
+    """Rays inside the scene box, a third with a zero direction component
+    (both signs of zero), many with an origin component on a plane of a sub
+    box or of a superbrick box: the slab test's 0 * inf = NaN cases."""
+    rs = np.random.default_rng(seed)
+    lo, hi = mx.scene_lo.numpy(), mx.scene_hi.numpy()
+    o = (lo + (hi - lo) * rs.random((n, 3))).astype(np.float32)
+    d = rs.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    d[0::3, 0] = 0.0
+    d[1::5, 1] = -0.0
+    d[2::7, 2] = 0.0
+    sub = mx.subbox.view(-1, mx2set.NUM_SUBS, 8).numpy()
+    pick = rs.integers(0, sub.shape[0], n)
+    part = rs.integers(0, mx2set.NUM_SUBS, n)
+    o[0::3, 0] = sub[pick[0::3], part[0::3], 0]      # on a sub's min x plane
+    o[1::5, 1] = mx.brick_hi.numpy()[pick[1::5], 1]  # on a superbrick's max y
+    o[2::7, 2] = sub[pick[2::7], part[2::7], 5]      # on a sub's max z plane
+    return o, d
+
+
+@pytest.mark.parametrize("name", ["blob_box", "cbox_rect"])
+def test_superbrick_box_holds_its_subs_and_votes_yes_where_they_do(name):
+    mx = MX2Set.from_pack(load_scene(_scene_path(name))[0])
+    sub = mx.subbox.view(-1, mx2set.NUM_SUBS, 8)
+    valid = sub[:, :, 6] > 0.0
+    assert bool(valid.any(dim=1).all())
+    assert bool((mx.brick_lo[:, None, :] <= sub[:, :, 0:3])[valid].all())
+    assert bool((mx.brick_hi[:, None, :] >= sub[:, :, 3:6])[valid].all())
+
+    boxes = mx.visit_boxes()
+    assert boxes.shape == (mx.num_bricks, 8) and boxes.dtype == torch.float32
+    assert boxes.data_ptr() % 16 == 0 and boxes.is_contiguous()
+    assert torch.equal(boxes[:, 0:3], mx.brick_lo)
+    assert torch.equal(boxes[:, 3:6], mx.brick_hi)
+    assert torch.equal(boxes[:, 6], valid.sum(dim=1).to(torch.float32))
+    assert mx.visit_boxes() is boxes                  # built once
+    assert torch.equal(mx.to("cpu").visit_boxes(), boxes)
+
+    o, d = _edge_rays(mx, 128 * 12, seed=5)
+    rays = lambda a: Vec3(*(torch.from_numpy(a[:, c].copy()).view(-1, 128)
+                            for c in range(3)))
+    po, pd = rays(o), rays(d)
+    pinv = Vec3(1.0 / pd.x, 1.0 / pd.y, 1.0 / pd.z)
+    rs = np.random.default_rng(9)
+    sub_pass = nan_seen = 0
+    for b in range(mx.num_bricks):
+        row = lambda box: box[None, :].expand(po.x.shape[0], -1)
+        for t_max in (INF, float(rs.uniform(0.05, 3.0))):
+            whole = mx2.box_maybe(row(boxes[b]), po, pinv, t_max)
+            for s in torch.nonzero(valid[b]).reshape(-1).tolist():
+                part = mx2.box_hit(row(sub[b, s]), po, pinv, t_max)
+                assert bool(whole[part].all()), (b, s, t_max)
+                sub_pass += int(part.sum())
+        tn, tf = mx2._slab_interval(row(boxes[b]), po, pinv)
+        nan_seen += int((torch.isnan(tn) | torch.isnan(tf)).sum())
+    assert sub_pass > 0 and nan_seen > 0              # both cases were met
+
+
+@pytest.mark.parametrize("n,seed,kind", [(2048, 11, "random"),
+                                         (1900, 12, "coherent"),
+                                         (300, 13, "edge")])
+def test_plain_walk_with_early_votes_is_the_plain_walk(blob_mx2, n, seed,
+                                                       kind):
+    if kind == "edge":
+        o, d = _edge_rays(blob_mx2, n, seed)
+    else:
+        o, d = (_random_rays if kind == "random" else _coherent_rays)(n, seed)
+    org, dirn = _vec(o), _vec(d)
+    brk, ent, cnt = pairtrace.visit_lists(blob_mx2, org, dirn, 1e-4, 1)
+    t, slot, seen = mx2.trace_mx2_plain(blob_mx2, org, dirn, 1e-4, brk, ent,
+                                        cnt, collect_stats=True)
+    et, eslot, eseen = mx2.trace_mx2_plain(blob_mx2, org, dirn, 1e-4, brk,
+                                           ent, cnt, collect_stats=True,
+                                           early_votes=True)
+    assert torch.equal(t.view(torch.int32), et.view(torch.int32))
+    assert torch.equal(slot, eslot)
+    assert eseen[:4].tolist() == seen.tolist()
+    listed, visited, voted, tested, boxed_out = eseen.tolist()
+    assert 0 < boxed_out < visited <= listed and voted <= tested
+    assert int((slot >= 0).sum()) > 0
+
+
 def _capture_waves(mx, cd, width, height, n_waves):
     waves = []
 
@@ -415,7 +505,12 @@ def test_cuda_kernel_matches_plain_on_waves():
         assert torch.equal(t, tp) and torch.equal(slot, sp)
         _, _, stats = mx2.trace_mx2_cuda(mx, *org, *dirn, tnear, brk, ent,
                                          cnt, collect_stats=True)
-        assert stats.tolist() == plain_stats.tolist()
+        assert stats[:4].tolist() == plain_stats.tolist()
+        # the fifth counter: the visits that ended at the superbrick's box
+        _, _, early_stats = mx2.trace_mx2_plain(
+            mx, org, dirn, tnear, brk, ent, cnt, collect_stats=True,
+            early_votes=True)
+        assert stats.tolist() == early_stats.tolist()
         walk_t, _ = wavefront.trace_bricks_cuda(bricks, *org, *dirn, tnear)
         off = ~torch.isclose(t, walk_t, rtol=1e-4, atol=0.0)
         assert off.float().mean() <= 1e-3
