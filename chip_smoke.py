@@ -46,16 +46,18 @@ JAX, and fails with a non-zero exit code if any phase fails:
    depth 4 (shallow criterion) and 12 (statistical), and the large scene at
    640x480, 2 samples, depth 4; B6 timed at the main path's shape (640x480,
    2 samples, depth 50) by CUDA events, its plain version once;
-3e. kernel B4 (the slim walk with the deferred leaf, engine "slim2") on
-   the four waves of 3b: t and slot equal to its plain version and to
-   kernel B2 bit for bit; whole wavefront renders at 160x120 with
-   trace="slim2", depth 4 (shallow) and 12 (statistical), NEE off and on;
-   B4, B2 (in turns) and plain B4 timed on the large scene's waves;
+3e. kernel B4 (B2's walk with the deferred leaf, engine "slim2") on the
+   four waves of 3b: t and slot equal to its plain version over the walk
+   table and to kernel B2 bit for bit; whole wavefront renders at 160x120
+   with trace="slim2", depth 4 (shallow) and 12 (statistical), NEE off and
+   on; B4, B2 (in turns) and plain B4 timed on the large scene's waves;
 3f. kernel B5 (the pair lists, engines "pairs" and "pairs8") likewise:
-   against its plain version t and slot equal on all but 1e-4 of the rays,
-   against B2 t bit for bit on every ray and slot on all but 1e-4; the
-   renders; timed, with the pairs per packet, and the cull and sort (torch
-   ops) timed apart from the kernel;
+   t and slot equal to its plain version with the kernel's early votes
+   bit for bit, and its four counters (pairs listed, skipped by the entry
+   bound, chunks tested, visits ended at the brick's box) equal to that
+   walk's; against B2 t bit for bit on every ray and slot on all but 1e-4;
+   the renders; timed, with the pairs per packet, and the cull and sort
+   (torch ops) timed apart from the kernel;
 3g. kernel B7 (the superbrick packet trace of large_scene_mode "mx2") on
    the primary and first-bounce waves of the same two 640x480, 2-sample
    renders through render_samples_mx2 (its own waves: the "mx2" path sorts
@@ -526,51 +528,85 @@ def main(argv=None) -> int:
                              f"plain version: {failed}")
 
     def plain_engine(engine):
-        """The plain version of a wavefront engine's per-wave trace."""
+        """The plain version of a wavefront engine's per-wave trace: B4's
+        over the walk table the kernel reads, B5's with the kernel's early
+        votes."""
         if engine == "slim2":
-            return trace_bricks_pipelined_plain
+            return lambda b, org, dirn, tnear: trace_bricks_pipelined_plain(
+                b, org, dirn, tnear, table=b.walk_table())
         rows = wf.parse_engine(engine)[1]
 
         def plain_pairs(b, org, dirn, tnear):
             brk, ent, cnt = pt.visit_lists(b, org, dirn, tnear, rows)
             return pt.trace_pairs_plain(b, org, dirn, tnear, brk, ent, cnt,
-                                        rows * pt.LANES)
+                                        rows * pt.LANES, early_votes=True)
         return plain_pairs
 
     def compare_engine(bricks, waves, label, engine):
         """3e, 3f: an engine's kernel on each wave against its plain version
-        and against kernel B2.  "slim2" must equal both bit for bit;
-        "pairs[N]" must give B2's t on every ray, and B2's and its plain
-        version's slot on all but 1e-4 of the rays (equal-t ties)."""
+        and against kernel B2.  Both engines must equal their plain versions
+        bit for bit, B5 its four counters too; "slim2" must equal B2 bit for
+        bit, "pairs[N]" give B2's t on every ray and B2's slot on all but
+        1e-4 of the rays (equal-t ties, which the visit order decides)."""
         kernel, plain = wf.engine_tracer(engine), plain_engine(engine)
         limit = 0.0 if engine == "slim2" else 1e-4
+        rows = wf.parse_engine(engine)[1]
         out = []
         for (org, dirn, tnear), name in zip(waves, ("primary", "bounce 1")):
             t, slot = kernel(bricks, org, dirn, tnear)
             b2_t, b2_slot = wf.trace_bricks_cuda(bricks, *org, *dirn, tnear)
+            counters = same_counters = None
+            if engine != "slim2":
+                lists = pt.visit_lists(bricks, org, dirn, tnear, rows)
+                _, _, seen = pt.trace_pairs_cuda(
+                    bricks, *org, *dirn, tnear, *lists, rows * pt.LANES,
+                    collect_stats=True)
             start = torch.cuda.Event(enable_timing=True)
             stop = torch.cuda.Event(enable_timing=True)
             start.record()
-            ref_t, ref_slot = plain(bricks, org, dirn, tnear)
+            if engine == "slim2":
+                ref_t, ref_slot = plain(bricks, org, dirn, tnear)
+            else:
+                # the plain walk with the kernel's early votes, and its
+                # counters
+                ref_t, ref_slot, ref_seen = pt.trace_pairs_plain(
+                    bricks, org, dirn, tnear, *lists, rows * pt.LANES,
+                    collect_stats=True, early_votes=True)
+                counters = {"kernel": seen.tolist(),
+                            "plain": ref_seen.tolist()}
+                same_counters = counters["kernel"] == counters["plain"]
             stop.record()
             stop.synchronize()
-            vs_plain = float(((t != ref_t) | (slot != ref_slot)).float().mean())
-            t_differs = int((t != b2_t).sum())
+            vs_plain = float(((t.view(torch.int32) != ref_t.view(torch.int32))
+                              | (slot != ref_slot)).float().mean())
+            t_differs = int((t.view(torch.int32)
+                             != b2_t.view(torch.int32)).sum())
             vs_b2 = float((slot != b2_slot).float().mean())
             both = torch.isfinite(t) & torch.isfinite(ref_t)
             err = float((t[both] - ref_t[both]).abs().max()) if both.any() \
                 else 0.0
-            res = {"ok": vs_plain <= limit and t_differs == 0
-                   and vs_b2 <= limit, "engine": engine, "scene": label,
+            res = {"ok": vs_plain == 0.0 and t_differs == 0
+                   and vs_b2 <= limit and same_counters is not False,
+                   "engine": engine, "scene": label,
                    "wave": name, "rays": int(t.numel()),
                    "mismatch_share": vs_plain, "t_differs_from_b2": t_differs,
                    "slot_mismatch_share_vs_b2": vs_b2, "max_abs_err": err,
-                   "plain_ms": start.elapsed_time(stop)}
+                   "plain_ms": start.elapsed_time(stop), "counters": counters}
             out.append(res)
+            told = ""
+            if counters is not None:
+                listed, skipped, tested, boxed_out = counters["kernel"]
+                visits = max(listed - skipped, 1)
+                told = (f"; counters {counters['kernel']} against the plain "
+                        f"walk's {counters['plain']}: of the pairs listed to "
+                        f"a warp {skipped / max(listed, 1):.4f} skipped by "
+                        f"the entry bound, of its visits "
+                        f"{boxed_out / visits:.4f} ended at the brick's box, "
+                        f"{tested / visits:.4f} chunks tested per visit")
             print(f"{engine} vs plain {label} {name} wave: {res['rays']} "
                   f"rays, mismatch share {vs_plain:.3e}, max abs err "
                   f"{err:.3e}; vs B2: t differs on {t_differs} rays, slot "
-                  f"mismatch share {vs_b2:.3e} -> "
+                  f"mismatch share {vs_b2:.3e}{told} -> "
                   f"{'ok' if res['ok'] else 'FAIL'}")
         return out
 
@@ -917,10 +953,10 @@ def main(argv=None) -> int:
     # B3's per-ray counters on it (a box test per node popped and per gate
     # of each brick entered, 32 triangle tests per gate passed).  Bytes: the
     # scene as the kernel reads it once, the rays in (24 bytes each) and the
-    # result out (8 bytes; B3's record 64).  B2, B3 and B6 read the walk
-    # table and the chunk gates (B3 and B6 also the 128-byte record of each
-    # hit's winner, what this wave's hits need); B4 and B5 the bricks and
-    # the top tree.
+    # result out (8 bytes; B3's record 64).  B2, B3, B4, B5 and B6 read the
+    # walk table and the chunk gates (B3 and B6 also the 128-byte record of
+    # each hit's winner, what this wave's hits need; B5 not the node
+    # records, but the bricks' visit boxes and its packets' lists).
     def walk_ops(counters):
         return ((counters["nodes"]["mean"] + 16 * counters["bricks"]["mean"])
                 * BOX_OPS + counters["chunks"]["mean"] * 32 * TRI_OPS)
@@ -928,8 +964,6 @@ def main(argv=None) -> int:
     big_counters = {c["wave"]: c["counters"] for c in b3_checks
                     if c["scene"] == "blob_box x3"}
     wave_rays = wave_ms["bounce 1"]["rays"]
-    scene_bytes = (big.brick_data.numel() + big.top_boxes.numel()
-                   + big.top_links.numel()) * 4
     walk_bytes = walk_table.nbytes + big.sub_boxes.numel() * 4
     wave_hits = next(c["hit_share"] for c in b3_checks
                      if c["scene"] == "blob_box x3"
@@ -938,10 +972,14 @@ def main(argv=None) -> int:
     slim_bound = bound(walk_bytes + wave_rays * 32, wave_ops)
     full_bound = bound(walk_bytes + wave_hits * 128 + wave_rays * 88,
                        wave_ops)
-    slim2_bound = bound(scene_bytes + wave_rays * 32, wave_ops)
-    # B5 also reads its packets' lists (a brick id and a bound per pair)
+    # B4 is B2's function over the same bytes
+    slim2_bound = slim_bound
+    # B5 reads the triangles and gates of the walk table, the visit boxes
+    # (32 bytes a brick) and its packets' lists (a brick id and a bound per
+    # pair)
     pair_bound = bound(
-        scene_bytes + wave_rays * 32
+        walk_table.tris.numel() * 4 + big.sub_boxes.numel() * 4
+        + big.num_bricks * 32 + wave_rays * 32
         + 8 * wave_ms["bounce 1"]["pairs_per_packet"]["pairs"]["mean"]
         * wave_ms["bounce 1"]["pairs_per_packet"]["pairs"]["packets"],
         wave_ops)

@@ -1,8 +1,12 @@
 // The per-ray brick walk shared by the brick kernels: the slim trace
-// (csrc/brick_trace.cu, B2), the full-record trace (the same file, B3) and
-// the persistent brick render (csrc/brick_render.cu, B6).  It is the
-// counterpart of the JAX package's ops/brickkernel.py::make_brick_intersect
-// and is held to ops/brickkernel.py's plain walk.
+// (csrc/brick_trace.cu, B2), the full-record trace (the same file, B3), the
+// persistent brick render (csrc/brick_render.cu, B6) and, with every leaf
+// deferred by one, the pipelined slim trace (csrc/brick_trace_slim2.cu, B4).
+// It is the counterpart of the JAX package's
+// ops/brickkernel.py::make_brick_intersect (and make_brick_intersect_pipelined)
+// and is held to ops/brickkernel.py's plain walk.  The pair-list trace
+// (csrc/pair_trace.cu, B5) takes its slab tests, its walk-table reads and
+// one round of its warp's chunk test (warp_chunk_round).
 //
 // What a ray does (the contract; the plain walk does the same):
 //   * it keeps its own stack of top-tree nodes, as in the reference CUDA
@@ -75,7 +79,6 @@ constexpr int kBrickPrims = 512;           // prims per brick
 constexpr int kSubPrims = 32;              // prims per chunk
 constexpr int kNumSubs = 16;               // chunks per brick
 constexpr int kBrickFloats = 136 * 128;    // one [BRICK_ROWS, 128] block
-constexpr int kSubRow = 128 * 128;         // offset of the chunk-gate row
 constexpr int kStack = 192;                // models/bricks.py::STACK_DEPTH
 constexpr int kNodeVecs = 4;               // float4 per WalkTable node record
 constexpr int kChunkFloats = 9 * kSubPrims;     // WalkTable floats per chunk
@@ -88,37 +91,36 @@ __device__ __forceinline__ float nan_max(float a, float b) {
   return (isnan(a) || isnan(b)) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
 }
 
-// ops/geometry.py::slab_interval + slab_hit: the ray meets box lo x hi at or
-// after 0 and no later than t_max.
-__device__ __forceinline__ bool slab_hit(V3 lo, V3 hi, V3 o, V3 inv, float t_max) {
+// ops/geometry.py::slab_interval: the ray's entry and exit times (tn, tf) of
+// box lo x hi; NaN propagates.
+__device__ __forceinline__ void slab_interval(V3 lo, V3 hi, V3 o, V3 inv, float& tn, float& tf) {
   const float tx0 = (lo.x - o.x) * inv.x;
   const float tx1 = (hi.x - o.x) * inv.x;
   const float ty0 = (lo.y - o.y) * inv.y;
   const float ty1 = (hi.y - o.y) * inv.y;
   const float tz0 = (lo.z - o.z) * inv.z;
   const float tz1 = (hi.z - o.z) * inv.z;
-  const float tn = nan_max(nan_max(nan_min(tx0, tx1), nan_min(ty0, ty1)), nan_min(tz0, tz1));
-  const float tf = nan_min(nan_min(nan_max(tx0, tx1), nan_max(ty0, ty1)), nan_max(tz0, tz1));
+  tn = nan_max(nan_max(nan_min(tx0, tx1), nan_min(ty0, ty1)), nan_min(tz0, tz1));
+  tf = nan_min(nan_min(nan_max(tx0, tx1), nan_max(ty0, ty1)), nan_max(tz0, tz1));
+}
+
+// ops/geometry.py::slab_hit: the ray meets box lo x hi at or after 0 and no
+// later than t_max; a NaN (0 * inf on a box plane) is a miss.
+__device__ __forceinline__ bool slab_hit(V3 lo, V3 hi, V3 o, V3 inv, float t_max) {
+  float tn, tf;
+  slab_interval(lo, hi, o, inv, tn, tf);
   return (tf >= nan_max(tn, 0.0f)) && (tn <= t_max);
 }
 
-// the same on a box stored as [b0..b2] x [b3..b5]
-__device__ __forceinline__ bool slab_hit(const float* b, V3 o, V3 inv, float t_max) {
-  return slab_hit({b[0], b[1], b[2]}, {b[3], b[4], b[5]}, o, inv, t_max);
+// The same test with a NaN counted as a hit.  For a box that contains other
+// boxes it says yes wherever slab_hit says yes for one of them: a containing
+// box has tn no larger and tf no smaller (rounding is monotone), and the NaN
+// of a contained box lies on another plane.
+__device__ __forceinline__ bool slab_maybe(V3 lo, V3 hi, V3 o, V3 inv, float t_max) {
+  float tn, tf;
+  slab_interval(lo, hi, o, inv, tn, tf);
+  return !(tf < nan_max(tn, 0.0f)) && !(tn > t_max);
 }
-
-// projection of a node box's (doubled) centre on the ray direction
-__device__ __forceinline__ float center_key(const float* b, V3 d) {
-  return (b[0] + b[3]) * d.x + (b[1] + b[4]) * d.y + (b[2] + b[5]) * d.z;
-}
-
-// The brick set's own tensors, as the kernels that do not read the walk
-// table take them (B4, B5).
-struct Bricks {
-  const float* __restrict__ top_boxes;
-  const int* __restrict__ top_links;
-  const float* __restrict__ brick_data;
-};
 
 // What the walk reads: the set's WalkTable (nodes, tris), its sub_boxes
 // (gates) and, for the winner's record, its brick_data.
@@ -140,23 +142,91 @@ struct WalkCounts {
   int nodes, bricks, chunks;
 };
 
+// Triangle k of a chunk: its test floats from the walk table's nine runs
+// (a warp reading k = lane reads each run as one 128-byte line).
+struct ChunkTri {
+  V3 p0, e1, e2;
+};
+__device__ __forceinline__ ChunkTri chunk_tri(const WalkTable& w, int chunk, int k) {
+  const float* tri = w.tris + (size_t)chunk * kChunkFloats + k;
+  return {{__ldg(tri), __ldg(tri + 32), __ldg(tri + 64)},
+          {__ldg(tri + 96), __ldg(tri + 128), __ldg(tri + 160)},
+          {__ldg(tri + 192), __ldg(tri + 224), __ldg(tri + 256)}};
+}
+
+// One round of the warp's test of a held chunk: the ray of lane `src` (its
+// o, d, tnear and best t, taken by shuffles) against the 32 triangles of
+// `chunk`, lane k testing triangle k.  The first triangle with the smallest t
+// strictly below that ray's best t wins (a min-reduction of t's bits, the
+// lowest lane on a tie), and lane src takes it: kFull also takes its (u, v).
+// All 32 lanes call it together.  The shuffles come before the triangle's
+// loads: loads first measured 1-3% slower for B2 (PERF.md).
+template <bool kFull>
+__device__ __forceinline__ void warp_chunk_round(const WalkTable& w, int chunk, int src, V3 o,
+                                                 V3 d, float tnear, float& best_t, int& best_slot,
+                                                 float& best_u, float& best_v) {
+  const int lane = threadIdx.x % 32;
+  const V3 ro = shfl3(o, src), rd = shfl3(d, src);
+  const float rnear = __shfl_sync(kFullWarp, tnear, src);
+  const float rbest = __shfl_sync(kFullWarp, best_t, src);
+  const ChunkTri tri = chunk_tri(w, chunk, lane);
+  float t, u, v;
+  const bool hit = tri_test(tri.p0, tri.e1, tri.e2, ro, rd, rnear, rbest, t, u, v) && t < rbest;
+  // a hit's t is above tnear >= 0 and finite: its bits order as it does
+  const unsigned key = hit ? __float_as_uint(t) : kInfBits;
+  const unsigned nearest = __reduce_min_sync(kFullWarp, key);
+  if (nearest == kInfBits) return;
+  const int k = __ffs(__ballot_sync(kFullWarp, key == nearest)) - 1;
+  float wu = 0.0f, wv = 0.0f;
+  if constexpr (kFull) {
+    wu = __shfl_sync(kFullWarp, u, k);
+    wv = __shfl_sync(kFullWarp, v, k);
+  }
+  if (lane == src) {
+    best_t = __uint_as_float(nearest);
+    best_slot = chunk * kSubPrims + k;
+    if constexpr (kFull) {
+      best_u = wu;
+      best_v = wv;
+    }
+  }
+}
+
 // Closest triangle hit over the bricks, below the given best_t.  Updates
 // best_t and best_slot where a triangle is strictly nearer; kFull also
 // carries that triangle's (u, v), kStats counts into `counts`.  All 32 lanes
 // of a warp call it together; a lane with active = false walks nothing.
-template <bool kFull, bool kStats>
+//
+// kDefer is the walk of kernel B4 (the plain _walk(pipelined=True)): a leaf
+// that is found becomes pending, and the pending leaf is entered only when
+// the next leaf is found or the stack is about to run out, so the nodes
+// between two leaves are classified against a best t that is one leaf
+// stale.  Leaves are entered in the walk's own order and every gate and
+// triangle test is against the current best t, so (t, slot) are those of
+// the walk without it, bit for bit.
+template <bool kFull, bool kStats, bool kDefer = false>
 __device__ __forceinline__ void brick_walk(const WalkTable& w, bool active, V3 o, V3 d,
                                            float tnear, float& best_t, int& best_slot,
                                            float& best_u, float& best_v, WalkCounts& counts) {
-  const int lane = threadIdx.x % 32;
+  static_assert(!(kStats && kDefer), "the deferred walk keeps no counters");
   const V3 inv = {1.0f / d.x, 1.0f / d.y, 1.0f / d.z};
   int stack[kStack];
   int sp = 0;
   if (active) stack[sp++] = 0;
   int next = 0, end = 0;   // the chunks of the entered leaf still behind their gates
+  int pend = -1;           // kDefer: the pending leaf's brick
   while (true) {
     // a lane with no gates left pops nodes until it enters a leaf
-    while (next == end && sp > 0) {
+    while (next == end && (sp > 0 || (kDefer && pend >= 0))) {
+      if constexpr (kDefer) {
+        // the stack is about to run out: the pending leaf is entered
+        if (sp <= 1 && pend >= 0) {
+          next = pend * kNumSubs;
+          end = next + kNumSubs;
+          pend = -1;
+        }
+        if (sp == 0) continue;
+      }
       const int node = stack[--sp];
       if constexpr (kStats) ++counts.nodes;
       const float4* rec = w.nodes + (size_t)node * kNodeVecs;
@@ -164,9 +234,19 @@ __device__ __forceinline__ void brick_walk(const WalkTable& w, bool active, V3 o
       if (!slab_hit({a.x, a.y, a.z}, {a.w, b.x, b.y}, o, inv, best_t)) continue;
       const int brick = __float_as_int(b.w);
       if (brick >= 0) {
-        if constexpr (kStats) ++counts.bricks;
-        next = brick * kNumSubs;
-        end = next + kNumSubs;
+        if constexpr (kDefer) {
+          // the next leaf is found: the pending one is entered and the
+          // found one takes its place
+          if (pend >= 0) {
+            next = pend * kNumSubs;
+            end = next + kNumSubs;
+          }
+          pend = brick;
+        } else {
+          if constexpr (kStats) ++counts.bricks;
+          next = brick * kNumSubs;
+          end = next + kNumSubs;
+        }
       } else {
         const bool left_first =
             l.x * d.x + l.y * d.y + l.z * d.z <= r.x * d.x + r.y * d.y + r.z * d.z;
@@ -191,39 +271,13 @@ __device__ __forceinline__ void brick_walk(const WalkTable& w, bool active, V3 o
     const unsigned holders = __ballot_sync(kFullWarp, held >= 0);
     if (holders == 0) {
       // no lane is in a leaf: every lane's gates are scanned
-      if (__all_sync(kFullWarp, sp == 0)) break;
+      if (__all_sync(kFullWarp, sp == 0 && (!kDefer || pend < 0))) break;
       continue;
     }
     for (unsigned rest = holders; rest != 0; rest &= rest - 1) {
       const int src = __ffs(rest) - 1;
       const int chunk = __shfl_sync(kFullWarp, held, src);
-      const V3 ro = shfl3(o, src), rd = shfl3(d, src);
-      const float rnear = __shfl_sync(kFullWarp, tnear, src);
-      const float rbest = __shfl_sync(kFullWarp, best_t, src);
-      const float* tri = w.tris + (size_t)chunk * kChunkFloats + lane;
-      const V3 p0 = {__ldg(tri), __ldg(tri + 32), __ldg(tri + 64)};
-      const V3 e1 = {__ldg(tri + 96), __ldg(tri + 128), __ldg(tri + 160)};
-      const V3 e2 = {__ldg(tri + 192), __ldg(tri + 224), __ldg(tri + 256)};
-      float t, u, v;
-      const bool hit = tri_test(p0, e1, e2, ro, rd, rnear, rbest, t, u, v) && t < rbest;
-      // a hit's t is above tnear >= 0 and finite: its bits order as it does
-      const unsigned key = hit ? __float_as_uint(t) : kInfBits;
-      const unsigned nearest = __reduce_min_sync(kFullWarp, key);
-      if (nearest == kInfBits) continue;
-      const int k = __ffs(__ballot_sync(kFullWarp, key == nearest)) - 1;
-      float wu = 0.0f, wv = 0.0f;
-      if constexpr (kFull) {
-        wu = __shfl_sync(kFullWarp, u, k);
-        wv = __shfl_sync(kFullWarp, v, k);
-      }
-      if (lane == src) {
-        best_t = __uint_as_float(nearest);
-        best_slot = chunk * kSubPrims + k;
-        if constexpr (kFull) {
-          best_u = wu;
-          best_v = wv;
-        }
-      }
+      warp_chunk_round<kFull>(w, chunk, src, o, d, tnear, best_t, best_slot, best_u, best_v);
     }
   }
 }

@@ -188,6 +188,7 @@ class BrickSet:
     def __post_init__(self):
         # the walk table of this set on this device, built on first use
         self._walk = None
+        self._visit_boxes = None
 
     @property
     def device(self) -> torch.device:
@@ -198,6 +199,21 @@ class BrickSet:
         if self._walk is None:
             self._walk = WalkTable.build(self)
         return self._walk
+
+    def visit_boxes(self) -> torch.Tensor:
+        """[B, 8] f32, one 32-byte record per brick for kernel B5's vote on
+        a whole brick: floats 0..5 its box (``brick_lo``, ``brick_hi``), 6
+        the number of its valid chunks, 7 zero.  Derived in torch ops on the
+        set's device at the first call and kept (a copy made by ``.to``
+        derives its own).  The box holds every valid chunk's gate box: both
+        are minima and maxima of the same triangles' float32 bounds."""
+        if self._visit_boxes is None:
+            valid = self.sub_boxes[:, :, 6] > 0.0
+            self._visit_boxes = torch.cat(
+                [self.brick_lo, self.brick_hi,
+                 valid.sum(dim=1, keepdim=True).to(torch.float32),
+                 torch.zeros_like(self.brick_lo[:, :1])], dim=1).contiguous()
+        return self._visit_boxes
 
     @property
     def nbytes(self) -> int:

@@ -103,8 +103,9 @@ def _brick_views(bricks: BrickSet):
 def _leaf(tris, subs, brick, o: Vec3, d: Vec3, inv: Vec3, tnear: float,
           best_t, best_slot, best_uv=None):
     """Test rays against one brick each (``brick`` [m] i64).  Returns the
-    updated (best_t, best_slot, best_uv) and the number of chunk gates each
-    ray passed; ``best_uv``, a (u, v) pair or None, follows the winner."""
+    updated (best_t, best_slot, best_uv) and the [m, 16] bool mask of the
+    chunk gates each ray passed; ``best_uv``, a (u, v) pair or None,
+    follows the winner."""
     m = int(brick.shape[0])
     sb = subs[brick]                                     # [m, 16, 8]
     col = lambda v: v[:, None]
@@ -131,10 +132,10 @@ def _leaf(tris, subs, brick, o: Vec3, d: Vec3, inv: Vec3, tnear: float,
     chunk_k = chunk_k.to(torch.int32)
 
     base = brick.to(torch.int32) * BRICK_PRIMS
-    gates = torch.zeros(m, dtype=torch.int32, device=brick.device)
+    gates = torch.zeros((m, NUM_SUBS), dtype=torch.bool, device=brick.device)
     for s in range(NUM_SUBS):
         gate = valid_s[:, s] & g.slab_hit(tn_s[:, s], tf_s[:, s], best_t)
-        gates += gate
+        gates[:, s] = gate
         take = gate & (chunk_t[:, s] < best_t)
         best_t = torch.where(take, chunk_t[:, s], best_t)
         best_slot = torch.where(take, base + (s * SUB_PRIMS) + chunk_k[:, s],
@@ -263,7 +264,7 @@ def _walk(bricks: BrickSet, o: Vec3, d: Vec3, tnear: float, best_t,
             best_slot[li] = bs
             if full:
                 uv[0][li], uv[1][li] = buv
-            counts[2, li] += gates
+            counts[2, li] += gates.sum(dim=1, dtype=torch.int32)
 
         di = torch.nonzero(hit & (brick < 0)).reshape(-1)
         if di.numel():
@@ -341,16 +342,18 @@ def trace_bricks_plain(bricks: BrickSet, org: Vec3, dirn: Vec3,
 
 def trace_bricks_pipelined_plain(bricks: BrickSet, org: Vec3, dirn: Vec3,
                                  tnear: float, active=None,
-                                 collect_stats: bool = False):
+                                 collect_stats: bool = False,
+                                 table: WalkTable = None):
     """Kernel B4's plain version: ``trace_bricks_plain``'s contract through
     the walk with the deferred leaf (``_walk(pipelined=True)``).  The best
     t the walk prunes with is one leaf stale, which only admits more nodes
     and leaves: with strict ``t < best`` and leaves tested in the walk's
     own order the winner is the same, so (t, slot) equal
     ``trace_bricks_plain``'s bit for bit, while the counters are at least
-    its counters."""
+    its counters.  With ``table`` the walk reads the set's ``WalkTable``,
+    as kernel B4 does (``_walk``)."""
     return _trace_slim_plain(bricks, org, dirn, tnear, active, collect_stats,
-                             pipelined=True)
+                             pipelined=True, table=table)
 
 
 def slot_rows(bricks: BrickSet, slot) -> torch.Tensor:

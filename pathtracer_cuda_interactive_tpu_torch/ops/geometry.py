@@ -52,6 +52,15 @@ def slab_hit(tn, tf, t_max):
     return (tf >= torch.maximum(tn, torch.zeros_like(tn))) & (tn <= t_max)
 
 
+def slab_maybe(tn, tf, t_max):
+    """``slab_hit`` with a NaN in tn or tf counted as a hit.  For a box that
+    contains other boxes it is true wherever ``slab_hit`` is true for one of
+    them: the containing box's tn is no larger and its tf no smaller
+    (rounding is monotone), and a contained box's NaN lies on another
+    plane."""
+    return ~(tf < torch.maximum(tn, torch.zeros_like(tn))) & ~(tn > t_max)
+
+
 def slab_test(org: Vec3, inv_dir: Vec3, box_min: Vec3, box_max: Vec3, t_max):
     """Hit mask of the ray against the box, closer than ``t_max``."""
     tn, tf = slab_interval(org, inv_dir, box_min, box_max)

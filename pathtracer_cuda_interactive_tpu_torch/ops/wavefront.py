@@ -155,9 +155,9 @@ def load_library() -> ctypes.CDLL:
 
 def _check_wave(bricks: BrickSet, rays, name: str) -> int:
     """Check a wave's ray components (contiguous float32 [N] tensors on one
-    card) and the brick set against what the brick kernels take (B4 and B5
-    read the set's own tensors; B2 and B3 its walk table, which
-    ``walk_pointers`` checks, and B3 its records); returns N."""
+    card) and the brick set against what the brick kernels take (B2, B3 and
+    B4 read its walk table, which ``walk_pointers`` checks, and B3 its
+    records); returns N."""
     if bricks.top_depth + 2 > STACK_DEPTH:
         raise ValueError(f"top tree of depth {bricks.top_depth} is too deep "
                          f"for the kernel's stack of {STACK_DEPTH} slots")
@@ -240,9 +240,9 @@ def load_slim2_library() -> ctypes.CDLL:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr,   # ox oy oz dx dy dz
                        i32, ctypes.c_float,            # n, tnear
-                       ptr, ptr, ptr,                  # boxes, links, bricks
+                       ptr, ptr, ptr,                  # nodes, tris, gates
                        ptr, ptr,                       # out_t, out_slot
-                       i32, ptr]                       # staged, stream
+                       ptr]                            # stream
         fn.restype = ctypes.c_int
         _slim2_lib = lib
     return _slim2_lib
@@ -251,14 +251,11 @@ def load_slim2_library() -> ctypes.CDLL:
 def trace_bricks_slim2_cuda(bricks: BrickSet, ox: torch.Tensor,
                             oy: torch.Tensor, oz: torch.Tensor,
                             dx: torch.Tensor, dy: torch.Tensor,
-                            dz: torch.Tensor, tnear: float,
-                            staged: bool = True):
+                            dz: torch.Tensor, tnear: float):
     """Launch kernel B4 on the current stream: ``trace_bricks_cuda``'s
-    contract and output, through the walk that starts the next leaf's
-    chunk-gate row on its way before it tests the pending leaf.  ``staged``
-    picks how: True, the engine's way, copies the row with cp.async into
-    the thread's shared-memory slots; False only prefetches it toward L2
-    (render/kernel_stats.py times both).  Adds one to
+    contract and output, through B2's walk over the set's walk table with
+    every leaf deferred by one, the found leaf's gates put on their way
+    before the pending leaf is tested.  Adds one to
     ``trace_bricks_slim2_cuda.launches`` per launch; an empty wave launches
     nothing."""
     n = _check_wave(bricks, (ox, oy, oz, dx, dy, dz),
@@ -269,14 +266,13 @@ def trace_bricks_slim2_cuda(bricks: BrickSet, ox: torch.Tensor,
     if n == 0:
         return out_t, out_slot
     lib = load_slim2_library()
+    nodes, tris, gates = walk_pointers(bricks)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.pt_brick_trace_slim2_launch(
             ox.data_ptr(), oy.data_ptr(), oz.data_ptr(), dx.data_ptr(),
-            dy.data_ptr(), dz.data_ptr(), n, float(tnear),
-            bricks.top_boxes.data_ptr(), bricks.top_links.data_ptr(),
-            bricks.brick_data.data_ptr(), out_t.data_ptr(),
-            out_slot.data_ptr(), int(staged), stream)
+            dy.data_ptr(), dz.data_ptr(), n, float(tnear), nodes, tris,
+            gates, out_t.data_ptr(), out_slot.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"brick_trace_slim2 launch failed: CUDA error "
                            f"{err}")

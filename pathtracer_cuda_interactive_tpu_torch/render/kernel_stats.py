@@ -12,14 +12,14 @@ takes three waves of the main path's 640x480, 2-sample frame:
 
 For each wave it prints the device ms, by CUDA events, of kernel B3 (the
 full record, with and without counters), of kernel B2 (the slim walk), of
-kernel B4 (the walk with the deferred leaf: staged through shared memory
-with cp.async, and with an L2 prefetch only) and of kernel B5 (the pair
+kernel B4 (B2's walk with the deferred leaf) and of kernel B5 (the pair
 lists of 32-row and 8-row packets: the kernel, and the cull and sort in
 torch ops apart) and of kernel B7 (the superbrick packet trace of
 large_scene_mode "mx2" over the same triangles as an MX2Set: the kernel, and
 its cull and sort apart), the kernels in turns with B2 before and after; for
-B5 the pairs per packet, the share of (block, pair) steps its entry-bound
-early-out skips and the chunks it stages per step; for B7 the superbricks
+B5 the pairs per packet, the share of the pairs listed to a warp that the
+walk's end at the entry bound skips, the share of its visits that end at
+the brick's own box and the chunks tested per visit; for B7 the superbricks
 listed and visited per packet of 128 rays, the share of listed visits its
 early-out skips and the subs voted in per visit; and B3's per-ray
 counters: nodes popped, bricks entered and chunk gates passed,
@@ -161,15 +161,14 @@ def main(argv=None) -> int:
         b2_ms = _cuda_ms(b2)
         b4_ms = _cuda_ms(lambda: wf.trace_bricks_slim2_cuda(
             bricks, *org, *dirn, tnear))
-        b4_prefetch_ms = _cuda_ms(lambda: wf.trace_bricks_slim2_cuda(
-            bricks, *org, *dirn, tnear, staged=False))
         pairs = {}
         for rows in (pt.PACKET_ROWS, 8):
             brk, ent, cnt = pt.visit_lists(bricks, org, dirn, tnear, rows)
             _, _, seen = pt.trace_pairs_cuda(bricks, *org, *dirn, tnear, brk,
                                              ent, cnt, rows * pt.LANES,
                                              collect_stats=True)
-            steps, skipped, staged = seen.tolist()
+            listed, skipped, tested, boxed_out = seen.tolist()
+            visits = max(listed - skipped, 1)
             pairs[f"pairs{rows}"] = {
                 "kernel_ms": _cuda_ms(lambda: pt.trace_pairs_cuda(
                     bricks, *org, *dirn, tnear, brk, ent, cnt,
@@ -179,8 +178,9 @@ def main(argv=None) -> int:
                 "packets": int(cnt.numel()),
                 "pairs_per_packet": float(cnt.float().mean()),
                 "max_pairs": int(cnt.max()),
-                "skipped_share": skipped / max(steps, 1),
-                "chunks_per_step": staged / max(steps, 1)}
+                "skipped_share": skipped / max(listed, 1),
+                "boxed_out_share": boxed_out / visits,
+                "chunks_per_visit": tested / visits}
         brk, ent, cnt = pt.visit_lists(superbricks, org, dirn, tnear, 1)
         _, _, seen = mx2.trace_mx2_cuda(superbricks, *org, *dirn, tnear, brk,
                                         ent, cnt, collect_stats=True)
@@ -204,19 +204,19 @@ def main(argv=None) -> int:
         res["waves"][name] = {"rays": int(org.x.numel()), "b3_ms": b3_ms,
                               "b3_counters_ms": b3_stats_ms, "b2_ms": b2_ms,
                               "b2_again_ms": b2_again_ms, "b4_ms": b4_ms,
-                              "b4_prefetch_ms": b4_prefetch_ms,
                               "b5": pairs, "b7": b7, "counters": summary}
         print(f"{name} wave, {org.x.numel()} rays: B3 {b3_ms:.4f} ms "
               f"({b3_stats_ms:.4f} with counters), B2 {b2_ms:.4f} ms "
-              f"(again {b2_again_ms:.4f}), B4 {b4_ms:.4f} ms staged, "
-              f"{b4_prefetch_ms:.4f} ms prefetch only")
+              f"(again {b2_again_ms:.4f}), B4 {b4_ms:.4f} ms")
         for key, p in pairs.items():
             print(f"  B5 {key}: kernel {p['kernel_ms']:.4f} ms, cull + sort "
                   f"{p['lists_ms']:.4f} ms; {p['packets']} packets, "
                   f"{p['pairs_per_packet']:.2f} pairs per packet (max "
-                  f"{p['max_pairs']} of {bricks.num_bricks} bricks), "
-                  f"early-out skips {p['skipped_share']:.4f} of the steps, "
-                  f"{p['chunks_per_step']:.4f} chunks staged per step")
+                  f"{p['max_pairs']} of {bricks.num_bricks} bricks); the "
+                  f"entry bound skips {p['skipped_share']:.4f} of the pairs "
+                  f"listed to a warp, {p['boxed_out_share']:.4f} of its "
+                  f"visits end at the brick's box, "
+                  f"{p['chunks_per_visit']:.4f} chunks tested per visit")
         print(f"  B7: kernel {b7['kernel_ms']:.4f} ms, cull + sort "
               f"{b7['lists_ms']:.4f} ms; {b7['packets']} packets, "
               f"{b7['listed_per_packet']:.2f} superbricks listed per packet "

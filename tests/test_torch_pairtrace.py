@@ -1,7 +1,8 @@
 """Kernel B5, the pair-list brick trace (wavefront engine "pairs[N]",
 ops/pairtrace.py): the visit-list builders and the kernel's plain version
 against the JAX package on the CPU, and the kernel against its plain
-version and kernel B2 on a card.
+version and kernel B2 on a card; the brick-box vote of kernel B5 against
+the chunk gates it stands in front of.
 
 The same numpy rays and the same brick arrays go through both packages.
 The JAX waves are [rows, 128] tables with an active mask; the port's are
@@ -227,6 +228,127 @@ def test_plain_b5_on_coherent_packets_and_empty_wave(bricks):
     assert t0.shape == s0.shape == (0,) and s0.dtype == torch.int32
 
 
+def test_visit_boxes_hold_their_valid_gates(bricks):
+    """Every brick's visit box (what kernel B5 votes on before the 16 gates)
+    is the brick's box, holds each of its valid chunk boxes, and counts
+    them."""
+    boxes = bricks.visit_boxes()
+    assert boxes.shape == (bricks.num_bricks, 8) and boxes.is_contiguous()
+    assert bricks.visit_boxes() is boxes
+    assert torch.equal(boxes[:, :3], bricks.brick_lo)
+    assert torch.equal(boxes[:, 3:6], bricks.brick_hi)
+    sub = bricks.sub_boxes
+    valid = sub[:, :, 6] > 0.0
+    assert torch.equal(boxes[:, 6], valid.sum(dim=1).float())
+    assert bool((boxes[:, 7] == 0.0).all()) and bool((boxes[:, 6] >= 1).all())
+    inside = ((sub[:, :, :3] >= boxes[:, None, :3]).all(dim=2)
+              & (sub[:, :, 3:6] <= boxes[:, None, 3:6]).all(dim=2))
+    assert bool(inside[valid].all())
+    moved = bricks.to("cpu")
+    assert moved.visit_boxes() is not boxes
+    assert torch.equal(moved.visit_boxes(), boxes)
+
+
+def _vote_rays(case, bricks):
+    """(o, d, t_max) [n] for the brick-box vote: random rays at random best
+    t; axis-parallel rays; and axis-parallel rays from origins on box
+    planes (0 * inf = NaN in the slab test)."""
+    rs = np.random.default_rng({"random": 11, "axis_parallel": 12,
+                                "on_plane": 13}[case])
+    n = 4096
+    o = rs.uniform([-1.0, 0.0, -1.0], [1.0, 2.0, 1.6], (n, 3))
+    if case == "random":
+        d = rs.normal(size=(n, 3))
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+    else:
+        axis = rs.integers(0, 3, n)
+        d = np.zeros((n, 3))
+        d[np.arange(n), axis] = rs.choice([-1.0, 1.0], n)
+        if case == "on_plane":
+            # the origin's other two coordinates on a plane of some brick's
+            # or some gate's box
+            sub = bricks.sub_boxes.numpy().reshape(-1, 8)
+            planes = np.concatenate([bricks.visit_boxes().numpy()[:, :6],
+                                     sub[sub[:, 6] > 0, :6]])
+            pick = planes[rs.integers(0, len(planes), n)]
+            for k in range(n):
+                for ax in range(3):
+                    if ax != axis[k]:
+                        o[k, ax] = pick[k, ax + 3 * rs.integers(0, 2)]
+    t_max = np.where(rs.random(n) < 0.3, np.inf, rs.uniform(0.0, 3.0, n))
+    return (o.astype(np.float32), d.astype(np.float32),
+            torch.from_numpy(t_max.astype(np.float32)))
+
+
+@pytest.mark.parametrize("case", ["random", "axis_parallel", "on_plane"])
+def test_brick_box_vote_says_yes_wherever_a_gate_does(bricks, case):
+    """``slab_maybe`` on a brick's visit box at a ray's best t is true
+    wherever the exact slab test of one of its valid gates is: kernel B5's
+    vote can only end a visit that no gate would let through."""
+    from pathtracer_cuda_interactive_tpu_torch.ops import geometry as g
+    o, d, t_max = _vote_rays(case, bricks)
+    org, dirn = _vec(o), _vec(d)
+    inv = Vec3(1.0 / dirn.x, 1.0 / dirn.y, 1.0 / dirn.z)
+    col = lambda v: Vec3(v.x[:, None], v.y[:, None], v.z[:, None])
+    box = bricks.visit_boxes()
+    tn, tf = g.slab_interval(col(org), col(inv),
+                             Vec3(box[:, 0], box[:, 1], box[:, 2]),
+                             Vec3(box[:, 3], box[:, 4], box[:, 5]))
+    maybe = g.slab_maybe(tn, tf, t_max[:, None])             # [n, B]
+    sub = bricks.sub_boxes
+    any_gate = torch.zeros_like(maybe)
+    nan_seen = 0
+    for s in range(sub.shape[1]):
+        tn, tf = g.slab_interval(col(org), col(inv),
+                                 Vec3(sub[:, s, 0], sub[:, s, 1], sub[:, s, 2]),
+                                 Vec3(sub[:, s, 3], sub[:, s, 4], sub[:, s, 5]))
+        nan_seen += int((torch.isnan(tn) | torch.isnan(tf)).sum())
+        any_gate |= (sub[:, s, 6] > 0.0) & g.slab_hit(tn, tf, t_max[:, None])
+    assert bool(any_gate.any())
+    assert not bool((any_gate & ~maybe).any())
+    assert bool((maybe & ~any_gate).any())      # the vote is looser
+    if case == "on_plane":
+        assert nan_seen > 0
+
+
+@pytest.mark.parametrize("case,packet_rows", [
+    ("random", 1), ("random", 4), ("coherent", 1), ("coherent", 4)])
+def test_plain_early_votes_give_the_plain_walk_and_counters(bricks, case,
+                                                            packet_rows):
+    """``trace_pairs_plain(early_votes=True)``, the kernel's walk with its
+    vote on the brick's own box, gives the plain walk's (t, slot) bit for
+    bit and the same three counters, plus the visits that ended at the
+    box; the counters are per warp of 32 rays."""
+    group = pairtrace.PAIR_GROUP
+    o, d = (_random_rays(1900, 21) if case == "random"
+            else _coherent_rays(1900, 22))
+    org, dirn = _vec(o), _vec(d)
+    brk, ent, cnt = pairtrace.visit_lists(bricks, org, dirn, 1e-4,
+                                          packet_rows)
+    rays = packet_rows * 128
+    t, slot = pairtrace.trace_pairs_plain(bricks, org, dirn, 1e-4, brk, ent,
+                                          cnt, rays)
+    t3, s3, c3 = pairtrace.trace_pairs_plain(bricks, org, dirn, 1e-4, brk,
+                                             ent, cnt, rays,
+                                             collect_stats=True)
+    t4, s4, c4 = pairtrace.trace_pairs_plain(bricks, org, dirn, 1e-4, brk,
+                                             ent, cnt, rays,
+                                             collect_stats=True,
+                                             early_votes=True)
+    for got_t, got_s in ((t3, s3), (t4, s4)):
+        assert torch.equal(got_t.view(torch.int32), t.view(torch.int32))
+        assert torch.equal(got_s, slot)
+    assert c3.tolist() == c4[:3].tolist() and len(c4) == 4
+    listed, skipped, tested, boxed_out = c4.tolist()
+    # each warp of a packet that holds a ray sees the packet's whole list
+    assert listed == sum(int(cnt[p]) * -(-min(rays, 1900 - p * rays) // group)
+                         for p in range(int(cnt.numel())))
+    assert 0 <= skipped < listed and tested > 0
+    assert 0 < boxed_out < listed - skipped
+    ref_t, _ = brickkernel.trace_bricks_plain(bricks, org, dirn, 1e-4)
+    assert torch.equal(t, ref_t)
+
+
 @pytest.mark.parametrize("packet_rows", [16, 8])
 def test_plain_b5_matches_jax_trace_wave_pairs(packet_rows):
     import jax.numpy as jnp
@@ -353,15 +475,22 @@ def test_cuda_kernel_matches_plain_and_b2_on_waves(packet_rows):
         assert (slot != s2).float().mean() <= 1e-4
         brk, ent, cnt = pairtrace.visit_lists(bricks, org, dirn, tnear,
                                               packet_rows)
-        tp, sp = pairtrace.trace_pairs_plain(bricks, org, dirn, tnear, brk,
-                                             ent, cnt, packet_rows * 128)
-        differ = (slot != sp) | (t != tp)
-        assert differ.float().mean() <= 1e-4
+        tp, sp, plain_stats = pairtrace.trace_pairs_plain(
+            bricks, org, dirn, tnear, brk, ent, cnt, packet_rows * 128,
+            collect_stats=True, early_votes=True)
+        assert torch.equal(t.view(torch.int32), tp.view(torch.int32))
+        assert torch.equal(slot, sp)
         _, _, stats = pairtrace.trace_pairs_cuda(
             bricks, *org, *dirn, tnear, brk, ent, cnt, packet_rows * 128,
             collect_stats=True)
-        seen, skipped, staged = stats.tolist()
-        assert seen >= int(cnt.sum()) and 0 <= skipped <= seen and staged > 0
+        assert stats.tolist() == plain_stats.tolist()
+        listed, skipped, tested, boxed_out = stats.tolist()
+        assert listed >= int(cnt.sum()) and 0 <= skipped <= listed
+        assert tested > 0
+    # a brick set that is not on the rays' card is refused before any launch
+    with pytest.raises(ValueError, match="bricks on"):
+        pairtrace.trace_pairs_cuda(bricks.to("cpu"), *org, *dirn, tnear, brk,
+                                   ent, cnt, packet_rows * 128)
 
 
 @pytest.mark.cuda

@@ -1,7 +1,8 @@
 """Kernel B4, the slim walk with the deferred leaf (wavefront engine
 "slim2"): its plain version (ops/brickkernel.py::
 trace_bricks_pipelined_plain) against the JAX package and against kernel
-B2's plain version on the CPU, and the kernel against both on a card.
+B2's plain version on the CPU, over the set's own tensors and over the walk
+table the kernel reads, and the kernel against both on a card.
 
 The pruning best t of the deferred walk is one leaf stale, which only
 admits more nodes and leaves; with strict ``t < best`` and leaves tested in
@@ -88,6 +89,26 @@ def test_plain_b4_equals_plain_b2_and_enters_more_bricks(bricks, seed, tnear):
     assert bool((c4[1] >= (s4 >= 0).to(torch.int32)).all())
 
 
+@pytest.mark.parametrize("seed,tnear", [(1, 1e-4), (7, 0.0)])
+def test_plain_b4_over_the_walk_table_equals_the_walk_over_the_set(
+        bricks, seed, tnear):
+    """What kernel B4 reads: the walk over the set's WalkTable gives the
+    walk over the set's own tensors, and plain B2, bit for bit, counters
+    included."""
+    o, d = _random_rays(seed=seed)
+    table = bricks.walk_table()
+    t, s, c = brickkernel.trace_bricks_pipelined_plain(
+        bricks, _vec(o), _vec(d), tnear, collect_stats=True, table=table)
+    ref_t, ref_s, ref_c = brickkernel.trace_bricks_pipelined_plain(
+        bricks, _vec(o), _vec(d), tnear, collect_stats=True)
+    assert torch.equal(t.view(torch.int32), ref_t.view(torch.int32))
+    assert torch.equal(s, ref_s) and torch.equal(c, ref_c)
+    t2, s2 = brickkernel.trace_bricks_plain(bricks, _vec(o), _vec(d), tnear,
+                                            table=table)
+    assert torch.equal(t.view(torch.int32), t2.view(torch.int32))
+    assert torch.equal(s, s2) and (s >= 0).float().mean() > 0.9
+
+
 def test_plain_b4_active_mask_shape_and_empty(bricks):
     o, d = _random_rays()
     shape = (16, 128)
@@ -170,15 +191,22 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
 
 
 def test_source_starts_the_copy_before_the_drain():
-    """The kernel is B4 and not B2 under a second name: in the walk, the
-    asynchronous copy of the found leaf comes before the pending leaf's
-    drain, in both variants."""
+    """The kernel is B4 and not B2 under a second name: it runs the shared
+    walk with the deferred leaf.  In that walk the found leaf is taken in
+    hand first (on the card nothing is fetched ahead of it: with the walk
+    table in L2 a prefetch measured slower than the deferral alone), then
+    the pending leaf, not the found one, is entered, then the found leaf
+    becomes the pending one, all before the warp's chunk tests."""
     src = wavefront.SLIM2_SOURCE.read_text()
-    walk = src[src.index("void brick_walk_pipelined"):]
-    drain = walk.index("if (pend >= 0 && (found >= 0 || sp_in <= 1))")
-    assert 0 < walk.index("cp_async16(dst") < drain
-    assert 0 < walk.index("prefetch.global.L2") < drain
-    assert "cp.async.wait_group" in src
+    assert "brick_walk<false, false, true>" in src
+    walk = (cuda_build.CSRC_DIR / "brick_walk.cuh").read_text()
+    deferred = walk[walk.index(
+        "while (next == end && (sp > 0 || (kDefer && pend >= 0)))"):]
+    found = deferred.index("const int brick = __float_as_int(b.w);")
+    drain = deferred.index("next = pend * kNumSubs;", found)
+    handover = deferred.index("pend = brick;")
+    tests = deferred.index("warp_chunk_round<kFull>(")
+    assert 0 < found < drain < handover < tests
 
 
 @pytest.mark.parametrize("nee", [False, True])
@@ -263,21 +291,22 @@ def _capture_waves(bricks, cd, width, height, n_waves):
 @pytest.mark.cuda
 @pytest.mark.skipif("not torch.cuda.is_available()",
                     reason="needs a CUDA card (the kernel has no CPU mode)")
-@pytest.mark.parametrize("staged", [True, False])
-def test_cuda_kernel_equals_b2_and_plain_on_waves(staged):
+@pytest.mark.parametrize("wave", [0, 1, 2])
+def test_cuda_kernel_equals_b2_and_plain_on_waves(wave):
     bricks, cd = _load(160, 120, "cuda")
-    for org, dirn, tnear in _capture_waves(bricks, cd, 160, 120, 3):
-        before = wavefront.trace_bricks_slim2_cuda.launches
-        t, slot = wavefront.trace_bricks_slim2_cuda(bricks, *org, *dirn,
-                                                    tnear, staged=staged)
-        torch.cuda.synchronize()
-        assert wavefront.trace_bricks_slim2_cuda.launches == before + 1
-        t2, s2 = wavefront.trace_bricks_cuda(bricks, *org, *dirn, tnear)
-        tp, sp = brickkernel.trace_bricks_pipelined_plain(bricks, org, dirn,
-                                                          tnear)
-        assert torch.equal(t, t2) and torch.equal(slot, s2)
-        assert torch.equal(t, tp) and torch.equal(slot, sp)
-        assert (slot >= 0).float().mean() > 0.5
+    org, dirn, tnear = _capture_waves(bricks, cd, 160, 120, 3)[wave]
+    before = wavefront.trace_bricks_slim2_cuda.launches
+    t, slot = wavefront.trace_bricks_slim2_cuda(bricks, *org, *dirn, tnear)
+    torch.cuda.synchronize()
+    assert wavefront.trace_bricks_slim2_cuda.launches == before + 1
+    t2, s2 = wavefront.trace_bricks_cuda(bricks, *org, *dirn, tnear)
+    tp, sp = brickkernel.trace_bricks_pipelined_plain(
+        bricks, org, dirn, tnear, table=bricks.walk_table())
+    assert torch.equal(t.view(torch.int32), t2.view(torch.int32))
+    assert torch.equal(slot, s2)
+    assert torch.equal(t.view(torch.int32), tp.view(torch.int32))
+    assert torch.equal(slot, sp)
+    assert (slot >= 0).float().mean() > 0.5
 
 
 @pytest.mark.cuda
