@@ -110,6 +110,29 @@ JAX, and fails with a non-zero exit code if any phase fails:
    minutes: a bounce packet takes a round for nearly every one of the
    scene's bricks), no kernel launch, a finite non-flat image that meets
    the statistical criterion against the wavefront's at that depth;
+4i. the tile and sample split (parallel/sharding.py) in a world of one
+   rank, an nccl process group on this card: render_samples_sharded at 2
+   spp, depth 50, against the unsharded function in the same call — "xla"
+   on the rect Cornell box at 160x120 and "megakernel" at 640x480, on the
+   large scene at 640x480 "bricks", "wavefront" with "slim", "slim2" and
+   "pairs", and "mx2", and "mx" at 64x48, depth 4 — each image equal bit
+   for bit, the launch counters equal to the unsharded frame's with the
+   mode's kernel launched, and 5 synced frames of each in turns (1 of
+   "mx"); then the same cases in two gloo worlds of spawned processes
+   sharing this card with CUDA tensors, 2 ranks (two tile shards) and 4
+   ranks (two tile shards by two sample shards), with "megakernel" and
+   "bricks" also at 3 spp (the second sample shard renders 1 of its 2
+   passes): every rank's image the
+   same, equal bit for bit to the unsharded frame where a pixel's
+   arithmetic is the same ("xla", "megakernel", "bricks") and within the
+   wave paths' criterion otherwise, each rank launching its mode's kernel
+   and no other, and one make_sharded_loss_and_grad step on
+   scenes/pointlight.xml at 64x48 against loss_and_grad on the card; no
+   multi-card number can be measured on one card;
+4j. gradients on the card (grad/inverse.py): loss_and_grad on
+   scenes/pointlight.xml at 64x48, 2 spp, 3 bounces against the CPU's
+   (rtol 1e-3, atol 1e-6), no kernel launch, then one synced step at
+   640x480, 2 spp, 6 bounces with its peak memory;
 5. the offline CLI on cuda.
 
 Its last two lines are a JSON object describing each kernel (with its
@@ -259,6 +282,373 @@ def record_check(rec, counts, ref, ref_counts) -> dict:
             "mismatch_share": float((~same).mean()),
             "hit_share": float(np.isfinite(got[0]).mean()),
             "max_abs_err": err}
+
+
+def kernel_wrappers() -> tuple:
+    """The seven kernels' wrappers, each counting its launches in
+    ``launches``: B1, B2, B3, B6, B4, B5, B7."""
+    from pathtracer_cuda_interactive_tpu_torch.experiments import mx2
+    from pathtracer_cuda_interactive_tpu_torch.ops import brickkernel as bk
+    from pathtracer_cuda_interactive_tpu_torch.ops import megakernel as mk
+    from pathtracer_cuda_interactive_tpu_torch.ops import pairtrace as pt
+    from pathtracer_cuda_interactive_tpu_torch.ops import wavefront as wf
+
+    return (mk.megakernel_cuda, wf.trace_bricks_cuda,
+            wf.trace_bricks_full_cuda, bk.render_bricks_cuda,
+            wf.trace_bricks_slim2_cuda, pt.trace_pairs_cuda,
+            mx2.trace_mx2_cuda)
+
+
+GRAD_W, GRAD_H, GRAD_BOUNCES = 64, 48, 3
+
+
+def grad_inputs(width, height, device):
+    """scenes/pointlight.xml on ``device``: (scene, camera data, the pixel
+    grid, the parameters)."""
+    from pathtracer_cuda_interactive_tpu_torch import SCENES_DIR
+    from pathtracer_cuda_interactive_tpu_torch.grad import inverse as inv
+    from pathtracer_cuda_interactive_tpu_torch.models.device_scene import (
+        DeviceScene)
+    from pathtracer_cuda_interactive_tpu_torch.models.scenepack import (
+        load_scene)
+    from pathtracer_cuda_interactive_tpu_torch.ops.camera import (
+        Camera, camera_ray_data)
+    from pathtracer_cuda_interactive_tpu_torch.parallel.sharding import (
+        _padded_grid)
+
+    pack, parsed = load_scene(str(SCENES_DIR / "pointlight.xml"))
+    scene = DeviceScene.from_pack(pack).to(device)
+    cd = torch.as_tensor(camera_ray_data(Camera.from_parsed(parsed.camera),
+                                         width, height), device=device)
+    pix = torch.as_tensor(_padded_grid(width, height, 1)[0], device=device)
+    params, _ = inv.split_params(scene)
+    return scene, cd, pix, params
+
+
+def grad_target(scene, cd, pix, params, width, height, spp, bounces):
+    """The target grid: the render with half the red albedo, same RNG."""
+    from pathtracer_cuda_interactive_tpu_torch.grad import inverse as inv
+
+    return inv.render_pixels_diff(
+        inv.merge_params(scene, dict(params, mat_r=params["mat_r"] * 0.5)),
+        cd, pix, width, height, 0, spp, num_bounces=bounces) / spp
+
+
+# the gloo worlds phase 4i starts on this one card: (ranks,
+# sample_parallel) — two tile shards, and two tile by two sample shards
+CARD_WORLDS = ((2, 1), (4, 2))
+
+
+def world_rank(rank, world_size, sample_parallel, sets_file, cases):
+    """One rank of a gloo world on card 0 (phase 4i).  ``sets_file`` holds
+    the scenes and camera data on the host by name; per case ``(label,
+    scene name, camera name, width, height, mode, kwargs, samples)`` it
+    renders the sharded frame with the launch counters zeroed just before
+    and read just after; then one sharded gradient step beside loss_and_grad on the card.
+    Returns the images and gradients on the host, the devices they were
+    computed on and the counts."""
+    from pathtracer_cuda_interactive_tpu_torch.grad import inverse as inv
+    from pathtracer_cuda_interactive_tpu_torch.parallel import sharding as sh
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    counters = kernel_wrappers()
+    held = torch.load(sets_file, weights_only=False)
+    mesh = sh.make_mesh(sample_parallel=sample_parallel, device=dev)
+    mesh.all_reduce(torch.zeros(1, device=dev))
+    on_card = {}
+    out = {"coords": (mesh.s_idx, mesh.t_idx), "frames": {}}
+    for (label, scene_name, cam_name, width, height, mode, kwargs,
+         spp) in cases:
+        for name in (scene_name, cam_name):
+            if name not in on_card:
+                on_card[name] = sh.replicate_scene(held[name], mesh)
+        for wrapper in counters:
+            wrapper.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = sh.render_samples_sharded(
+            on_card[scene_name], on_card[cam_name], width, height, 0, spp,
+            mesh, mode=mode, **kwargs)
+        torch.cuda.synchronize()
+        out["frames"][label] = {
+            "image": img.cpu(), "device": str(img.device),
+            "launches": [w.launches for w in counters],
+            "ms": (time.perf_counter() - t0) * 1e3}
+    del on_card, held
+    W, H = GRAD_W, GRAD_H
+    scene, cd, pix, params = grad_inputs(W, H, dev)
+    target = grad_target(scene, cd, pix, params, W, H, SPP, GRAD_BOUNCES)
+    loss1, grads1 = inv.loss_and_grad(params, scene, cd, target, pix < W * H,
+                                      pix, W, H, 0, SPP,
+                                      num_bounces=GRAD_BOUNCES)
+    img = target.reshape(-1, 3)[:W * H].reshape(H, W, 3)
+    pix_m, tgt_m, valid_m = inv.shard_grid_inputs(mesh, img)
+    step = inv.make_sharded_loss_and_grad(mesh, W, H, SPP,
+                                          num_bounces=GRAD_BOUNCES)
+    loss_n, grads_n = step(params, sh.replicate_scene(scene, mesh), cd,
+                           tgt_m, valid_m, pix_m, 0)
+    out["grad"] = {
+        "devices": sorted({str(t.device) for t in
+                           [loss_n, *grads_n.values()]}),
+        "single": (float(loss1), {k: g.cpu() for k, g in grads1.items()}),
+        "sharded": (float(loss_n), {k: g.cpu() for k, g in grads_n.items()})}
+    return out
+
+
+def card_worlds(sets: dict, cases, refs: dict, counters) -> list:
+    """Phase 4i, second part: ``cases`` (see world_rank, plus the index of
+    the mode's kernel in ``counters`` or None) in each world of
+    CARD_WORLDS, gloo processes sharing this card; each image against the
+    unsharded frame ``refs[label]``.  Returns a row per world and case."""
+    import tempfile
+
+    from pathtracer_cuda_interactive_tpu_torch.parallel.world import (
+        run_world)
+
+    rows = []
+    with tempfile.TemporaryDirectory() as work:
+        sets_file = Path(work) / "sets.pt"
+        torch.save(sets, sets_file)
+        for ranks, sp in CARD_WORLDS:
+            name = f"{ranks} ranks, sample_parallel {sp}"
+            t0 = time.perf_counter()
+            per_rank = run_world(world_rank, ranks,
+                                 Path(work) / f"world{ranks}x{sp}",
+                                 args=(sp, str(sets_file),
+                                       [c[:-1] for c in cases]),
+                                 timeout=400)
+            world_s = time.perf_counter() - t0
+            for label, *_, mode, _kwargs, _spp, kernel in cases:
+                frames = [r["frames"][label] for r in per_rank]
+                got = frames[0]["image"]
+                same = all(torch.equal(f["image"], got) for f in frames)
+                on_card = all(f["device"] == "cuda:0" for f in frames)
+                ref = refs[label]
+                exact = torch.equal(got, ref)
+                if mode in ("xla", "plain", "megakernel", "bricks"):
+                    check = {"criterion": "bit for bit", "ok": exact}
+                elif mode == "mx":
+                    check = mx_check(got.numpy(), ref.numpy())
+                else:
+                    check = wave_check(got.numpy(), ref.numpy())
+                counts = [f["launches"] for f in frames]
+                counted = all(
+                    all(n == 0 for i, n in enumerate(c) if i != kernel)
+                    and (kernel is None or c[kernel] > 0) for c in counts)
+                if not (same and on_card and check["ok"] and counted):
+                    raise SystemExit(
+                        f"chip_smoke: {label} in a world of {name}: every "
+                        f"rank's image the same {same}, on cuda:0 "
+                        f"{on_card}, against the unsharded frame {check}, "
+                        f"launches per rank {counts}")
+                print(f"sharded {label}, gloo world of {name} on this card: "
+                      f"every rank's image the same, "
+                      f"{'equal bit for bit to' if exact else 'within ' + check['criterion'] + ' of'} "
+                      f"the unsharded frame (max abs err "
+                      f"{float((got - ref).abs().max()):.3e}); launches per "
+                      f"rank {counts} (B1, B2, B3, B6, B4, B5, B7); frame "
+                      f"per rank {[round(f['ms'], 4) for f in frames]} ms "
+                      f"(ranks time-slice the card)")
+                rows.append({"world": [ranks, sp], "case": label,
+                             "mode": mode, "bit_for_bit": exact,
+                             "check": check, "launches": counts,
+                             "rank_ms": [f["ms"] for f in frames]})
+            rtol, atol = 2e-4, 1e-6
+            for r, res in enumerate(per_rank):
+                g = res["grad"]
+                loss1, grads1 = g["single"]
+                loss_n, grads_n = g["sharded"]
+                close = abs(loss_n - loss1) <= 1e-4 * abs(loss1) and all(
+                    torch.isfinite(grads_n[k]).all() and torch.allclose(
+                        grads_n[k], grads1[k], rtol=rtol, atol=atol)
+                    for k in grads1)
+                if not close or g["devices"] != ["cuda:0"]:
+                    raise SystemExit(
+                        f"chip_smoke: sharded gradient step, rank {r} of "
+                        f"{name}: loss {loss_n} against {loss1}, on "
+                        f"{g['devices']}, gradients {grads_n} against "
+                        f"{grads1}")
+            worst = max(float((res["grad"]["sharded"][1][k]
+                               - res["grad"]["single"][1][k]).abs().max())
+                        for res in per_rank for k in res["grad"]["single"][1]
+                        if res["grad"]["single"][1][k].numel())
+            print(f"sharded gradient step, gloo world of {name} on this "
+                  f"card, pointlight {GRAD_W}x{GRAD_H} spp {SPP} "
+                  f"{GRAD_BOUNCES} bounces: every rank's loss within rtol "
+                  f"1e-4 and gradients within rtol {rtol}, atol {atol} of "
+                  f"loss_and_grad on the card (max abs err {worst:.3e}); "
+                  f"world {world_s:.1f} s with its start")
+            rows.append({"world": [ranks, sp], "case": "gradient step",
+                         "grad_max_abs_err": worst,
+                         "loss": per_rank[0]["grad"]["sharded"][0],
+                         "single_loss": per_rank[0]["grad"]["single"][0],
+                         "world_s": world_s})
+    return rows
+
+
+def synced_ms(fn) -> float:
+    """Host milliseconds of ``fn()`` from a synced start to a synced end."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def sharded_phase(cases, counters) -> dict:
+    """Phase 4i: render_samples_sharded in a world of one rank (an nccl
+    process group on this card) against the unsharded function, per case
+    ``(label, scene, cam, width, height, mode, kwargs, unsharded, kernel,
+    repeats)``: the images equal bit for bit, the launch counters (zeroed
+    just before each of the two frames, read just after) equal,
+    ``kernel``'s nonzero (None: no kernel launched at all); those two
+    synced frames and ``repeats`` more of each, in turns, are timed.
+    Returns the rows and each counter's launches over the counted sharded
+    frames, and the unsharded frames on the host by label."""
+    import socket
+
+    import torch.distributed as dist
+
+    from pathtracer_cuda_interactive_tpu_torch.parallel import sharding as sh
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    rows, sharded_launches, refs = [], [0] * len(counters), {}
+    try:
+        mesh = sh.make_mesh()
+        if not (mesh.collective and mesh.world_size == 1
+                and mesh.device.type == "cuda"):
+            raise SystemExit(f"chip_smoke: the one-rank mesh is {mesh}")
+        # the communicator is set up at the first collective, not in a frame
+        mesh.all_reduce(torch.zeros(1, device=mesh.device))
+
+        def counted(fn):
+            for wrapper in counters:
+                wrapper.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            return (out, [wrapper.launches for wrapper in counters],
+                    (time.perf_counter() - t0) * 1e3)
+
+        for (label, scene, cam, width, height, mode, kwargs, unsharded,
+             kernel, repeats) in cases:
+            replica = sh.replicate_scene(scene, mesh)
+
+            def sharded():
+                return sh.render_samples_sharded(
+                    replica, cam, width, height, 0, SPP, mesh, mode=mode,
+                    **kwargs)
+
+            got, got_counts, got_ms = counted(sharded)
+            ref, ref_counts, ref_ms = counted(unsharded)
+            if got.device != cam.device or not torch.equal(got, ref):
+                raise SystemExit(
+                    f"chip_smoke: sharded {label} on {got.device} differs "
+                    f"from the unsharded frame: max abs err "
+                    f"{(got - ref).abs().max().item()}")
+            expected = [c for c in counters if c is kernel]
+            moved = [w for w, n in zip(counters, got_counts) if n]
+            if got_counts != ref_counts or moved != expected:
+                raise SystemExit(f"chip_smoke: sharded {label} launches "
+                                 f"{got_counts}, unsharded {ref_counts}")
+            sharded_launches = [a + b for a, b in zip(sharded_launches,
+                                                      got_counts)]
+            refs[label] = ref.cpu()
+            ms = {"sharded": [got_ms], "unsharded": [ref_ms]}
+            for _ in range(repeats):
+                ms["sharded"].append(synced_ms(sharded))
+                ms["unsharded"].append(synced_ms(unsharded))
+            med = {k: statistics.median(v) for k, v in ms.items()}
+            print(f"sharded {label} {width}x{height} spp {SPP}: equal bit "
+                  f"for bit to the unsharded frame, launches {got_counts} "
+                  f"(B1, B2, B3, B6, B4, B5, B7) as the unsharded frame's; "
+                  f"median synced frame {med['sharded']:.4f} ms sharded, "
+                  f"{med['unsharded']:.4f} ms unsharded ({repeats + 1} "
+                  f"each, in turns)")
+            rows.append({"case": label, "mode": mode, "width": width,
+                         "height": height, "launches": got_counts,
+                         "sharded_ms": ms["sharded"],
+                         "unsharded_ms": ms["unsharded"],
+                         "median_sharded_ms": med["sharded"],
+                         "median_unsharded_ms": med["unsharded"]})
+    finally:
+        dist.destroy_process_group()
+    print("sharded: a world of one rank on one card (gloo worlds of several "
+          "ranks on it follow); no multi-card number (speed-up, efficiency, "
+          "collective time across cards) can be measured on one card")
+    return {"rows": rows, "launches": sharded_launches}, refs
+
+
+def grad_phase(dev, counters) -> dict:
+    """Phase 4j: loss_and_grad on the card against the CPU (pointlight.xml,
+    64x48, 2 spp, 3 bounces), then one timed step at 640x480, 2 spp, 6
+    bounces with its peak memory.  No hand-written kernel takes part."""
+    from pathtracer_cuda_interactive_tpu_torch.grad import inverse as inv
+
+    W, H, spp, bounces = GRAD_W, GRAD_H, SPP, GRAD_BOUNCES
+    scene, cd, pix, params = grad_inputs(W, H, "cpu")
+    target = grad_target(scene, cd, pix, params, W, H, spp, bounces)
+    valid = pix < W * H
+    cpu_loss, cpu_grads = inv.loss_and_grad(params, scene, cd, target, valid,
+                                            pix, W, H, 0, spp,
+                                            num_bounces=bounces)
+    for wrapper in counters:
+        wrapper.launches = 0
+    scene, cd, pix, params = grad_inputs(W, H, dev)
+    loss, grads = inv.loss_and_grad(params, scene, cd, target.to(dev),
+                                    valid.to(dev), pix, W, H, 0, spp,
+                                    num_bounces=bounces)
+    # the plain ops differ from the CPU's only by float order and the
+    # 1-2 ulp of the math library: rtol 1e-3; atol 1e-6 for the
+    # gradients that are 0 or about 1e-10 on both
+    rtol, atol = 1e-3, 1e-6
+    worst = {}
+    for k, g in grads.items():
+        ref = cpu_grads[k]
+        if g.device != cd.device or not torch.isfinite(g).all() \
+                or not torch.allclose(g.cpu(), ref, rtol=rtol, atol=atol):
+            raise SystemExit(f"chip_smoke: gradient {k} on {g.device} "
+                             f"{g.cpu().tolist()} against the CPU's "
+                             f"{ref.tolist()}")
+        worst[k] = float((g.cpu() - ref).abs().max()) if g.numel() else 0.0
+    loss_rel = abs(float(loss) - float(cpu_loss)) / float(cpu_loss)
+    if loss_rel > rtol or not (grads["light_intensity"] != 0).any():
+        raise SystemExit(f"chip_smoke: loss {float(loss)} against the CPU's "
+                         f"{float(cpu_loss)}, or light_intensity's gradient "
+                         "is zero")
+    if any(w.launches for w in counters):
+        raise SystemExit("chip_smoke: the gradient step launched a kernel")
+    print(f"gradients on cuda, pointlight {W}x{H} spp {spp} {bounces} "
+          f"bounces: loss {float(loss):.6e} against the CPU's "
+          f"{float(cpu_loss):.6e} (rel err {loss_rel:.2e}); all "
+          f"{len(grads)} gradients finite and within rtol {rtol}, atol "
+          f"{atol} of the CPU's (max abs err "
+          f"{max(worst.values()):.3e}); no kernel launch")
+
+    W, H, bounces = MAIN_W, MAIN_H, 6
+    scene, cd, pix, params = grad_inputs(W, H, dev)
+    target, valid = inv.image_to_grid(torch.zeros((H, W, 3), device=dev))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    step_ms = synced_ms(lambda: inv.loss_and_grad(
+        params, scene, cd, target, valid, pix, W, H, 0, spp,
+        num_bounces=bounces))
+    peak = torch.cuda.max_memory_allocated()
+    print(f"gradient step {W}x{H} spp {spp} {bounces} bounces on cuda: "
+          f"{step_ms:.1f} ms (one synced call), peak memory {peak} bytes "
+          f"({peak - before} above the {before} held before it)")
+    return {"loss": float(loss), "cpu_loss": float(cpu_loss),
+            "loss_rel_err": loss_rel, "grad_max_abs_err": worst,
+            "step_ms": step_ms, "peak_bytes": peak,
+            "bytes_before": before}
 
 
 def main(argv=None) -> int:
@@ -1045,10 +1435,7 @@ def main(argv=None) -> int:
                    walk_table_build_ms=walk_table.build_s * 1e3,
                    walk_nodes="global")
 
-    counters = (mk.megakernel_cuda, wf.trace_bricks_cuda,
-                wf.trace_bricks_full_cuda, bk.render_bricks_cuda,
-                wf.trace_bricks_slim2_cuda, pt.trace_pairs_cuda,
-                mx2.trace_mx2_cuda)
+    counters = kernel_wrappers()
 
     def zero_counts():
         for wrapper in counters:
@@ -1322,7 +1709,6 @@ def main(argv=None) -> int:
     b5_launches, pairs_png = drive_engine(
         big, RenderConfig(wavefront_trace="pairs"), "wavefront",
         pt.trace_pairs_cuda, "B5")
-    del big_mx2
     b7_launches, mx2_png = drive_engine(
         big_pack, RenderConfig(large_scene_mode="mx2"), "mx2",
         mx2.trace_mx2_cuda, "B7")
@@ -1378,9 +1764,88 @@ def main(argv=None) -> int:
                           "rounds": mx_rounds, "products": mx_products,
                           "bricks": mx_renderer.scene.num_bricks,
                           "vs_wavefront": against}
-    del big, mx_renderer
 
     stamp("4h done")
+    # -- 4i. the tile and sample split (parallel/sharding.py) in a world of
+    # one rank: each mode against the unsharded function, same call; an
+    # "mx" frame takes 11-14 s even at 64x48 (its rounds, not its rays), so
+    # it is timed on its two counted frames only.  Then gloo worlds of 2
+    # and 4 spawned ranks on this card, against the same unsharded frames
+    cbox_pack, cbox_parsed = load_scene(str(SCENES_DIR / "cbox_rect.xml"))
+    cbox = DeviceScene.from_pack(cbox_pack).to(dev)
+    cbox_cam = Camera.from_parsed(cbox_parsed.camera)
+    mx_w, mx_h = 64, 48
+    mx_depth_kw = {"max_depth": mx_depth}
+    big_mx = mx_renderer.scene
+    held = {"cbox": cbox, "big": big, "big_mx2": big_mx2, "big_mx": big_mx,
+            "cbox_main": camera_ray_data(cbox_cam, MAIN_W, MAIN_H),
+            "cbox_small": camera_ray_data(cbox_cam, SMALL_W, SMALL_H),
+            "big_main": cd, "big_small": camera_ray_data(big_cam, mx_w, mx_h)}
+    held = {k: torch.as_tensor(v).to(dev) if isinstance(v, np.ndarray)
+            else v for k, v in held.items()}
+    # (label, scene, camera, width, height, mode, kwargs, the unsharded
+    # frame, the mode's kernel, timed frames beyond the counted one)
+    specs = [
+        ("xla cbox_rect", "cbox", "cbox_small", SMALL_W, SMALL_H, "xla", {},
+         lambda: integrator.render_samples(cbox, held["cbox_small"], SMALL_W,
+                                           SMALL_H, 0, SPP), None, 4),
+        ("megakernel cbox_rect", "cbox", "cbox_main", MAIN_W, MAIN_H,
+         "megakernel", {},
+         lambda: mk.render_samples_megakernel(cbox, held["cbox_main"],
+                                              MAIN_W, MAIN_H, 0, SPP),
+         mk.megakernel_cuda, 4),
+        ("bricks blob_box x3", "big", "big_main", MAIN_W, MAIN_H, "bricks",
+         {}, lambda: bk.render_samples_bricks(big, cd, MAIN_W, MAIN_H, 0,
+                                              SPP),
+         bk.render_bricks_cuda, 4),
+        *[(f"wavefront {trace}", "big", "big_main", MAIN_W, MAIN_H,
+           "wavefront", {"trace": trace},
+           lambda trace=trace: wf.render_samples_wavefront(
+               big, cd, MAIN_W, MAIN_H, 0, SPP, trace=trace),
+           {"slim": wf.trace_bricks_cuda,
+            "slim2": wf.trace_bricks_slim2_cuda,
+            "pairs": pt.trace_pairs_cuda}[trace], 4)
+          for trace in ("slim", "slim2", "pairs")],
+        ("mx2 blob_box x3", "big_mx2", "big_main", MAIN_W, MAIN_H, "mx2", {},
+         lambda: mx2.render_samples_mx2(big_mx2, cd, MAIN_W, MAIN_H, 0, SPP),
+         mx2.trace_mx2_cuda, 4),
+        (f"mx blob_box x3 depth {mx_depth}", "big_mx", "big_small", mx_w,
+         mx_h, "mx", mx_depth_kw,
+         lambda: mxtrace.render_samples_mx(big_mx, held["big_small"], mx_w,
+                                           mx_h, 0, SPP, **mx_depth_kw),
+         None, 0),
+    ]
+    sharded, refs = sharded_phase(
+        [(label, held[sc], held[cam], w, h, mode, kw, unsharded, kernel, n)
+         for label, sc, cam, w, h, mode, kw, unsharded, kernel, n in specs],
+        counters)
+    results["sharded"] = sharded
+    # 3 passes over two sample shards: the second renders 1 of its 2, so
+    # B1 and B6 take n_real < n
+    odd = [("megakernel cbox_rect spp 3", "cbox", "cbox_main", MAIN_W,
+            MAIN_H, "megakernel", {}, mk.megakernel_cuda,
+            lambda: mk.render_samples_megakernel(
+                cbox, held["cbox_main"], MAIN_W, MAIN_H, 0, 3)),
+           ("bricks blob_box x3 spp 3", "big", "big_main", MAIN_W, MAIN_H,
+            "bricks", {}, bk.render_bricks_cuda,
+            lambda: bk.render_samples_bricks(big, cd, MAIN_W, MAIN_H, 0, 3))]
+    refs.update({c[0]: c[-1]().cpu() for c in odd})
+    cases = [(label, sc, cam, w, h, mode, kw, spp,
+              None if kernel is None else counters.index(kernel))
+             for label, sc, cam, w, h, mode, kw, spp, kernel in
+             [(*c[:7], SPP, c[8]) for c in specs]
+             + [(*c[:7], 3, c[7]) for c in odd]]
+    host = {k: v.to("cpu") for k, v in held.items()}
+    del big, big_mx, big_mx2, mx_renderer, held, specs, odd
+    torch.cuda.empty_cache()
+    results["card_worlds"] = card_worlds(host, cases, refs, counters)
+    del host
+
+    stamp("4i done")
+    # -- 4j. gradients on the card (grad/inverse.py, plain torch ops)
+    results["grad"] = grad_phase(dev, counters)
+
+    stamp("4j done")
     # -- 4d. the kernel-stats entry point (kernel B3) ----------------------
     zero_counts()
     if kernel_stats.main(["--out", args.out] if args.out else []) != 0:
@@ -1413,7 +1878,7 @@ def main(argv=None) -> int:
             json.dumps(results, indent=1))
 
     root = Path(__file__).resolve().parent
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "megakernel",
         "route": "cuda",
         "source": str(mk.SOURCE.resolve().relative_to(root)),
@@ -1506,7 +1971,11 @@ def main(argv=None) -> int:
         "plain_ms": wave_ms["bounce 1"]["mx2_plain_ms"],
         **b7_bound,
         "library_ms": None,
-    }]}))
+    }]
+    # launches on the sharded path (4i), in the order of ``counters``
+    for entry, n in zip(kernels, sharded["launches"]):
+        entry["sharded_launches"] = n
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -355,15 +355,19 @@ def render_samples_mx2(mx: MX2Set, cam_data: torch.Tensor, width: int,
                        seed: int = 1984, max_depth: int = MAX_DEPTH,
                        rr_start_depth: int = RR_START_DEPTH,
                        sort_mode: str = "mort_oct", nee: bool = False,
-                       tracer=None, stats=None) -> torch.Tensor:
+                       tracer=None, stats=None, pix_slots=None,
+                       num_real=None) -> torch.Tensor:
     """"mx2" drop-in for ops.wavefront.render_samples_wavefront: the
     [H, W, 3] radiance SUM of ``num_samples`` passes on ``cam_data``'s
     device.  ``sort_mode`` is "mort_oct" or "none" ("sig_mort" needs a
     BrickSet).  ``tracer(mx, org, dirn, tnear) -> (t, slot)`` replaces
     ``trace_wave_mx2`` (the chip smoke passes the plain version).
-    ``stats``, a dict, gets the traced waves and rays added to it."""
+    ``stats``, a dict, gets the traced waves and rays added to it.
+    ``pix_slots`` and ``num_real`` pick the slots and the passes that count
+    (ops/wavefront.py::render_waves)."""
     return render_waves(mx, cam_data, width, height, sample_start,
                         num_samples, seed, max_depth, rr_start_depth,
                         sort_mode, nee, mx.scene_lo, mx.scene_hi,
                         tracer or trace_wave_mx2, _record_mx2, stats,
-                        max_rays=MAX_RAYS_PER_WAVE)
+                        max_rays=MAX_RAYS_PER_WAVE, pix_slots=pix_slots,
+                        num_real=num_real)

@@ -165,15 +165,19 @@ def render_samples_mx(mx: MXSet, cam_data: torch.Tensor, width: int,
                       seed: int = 1984, max_depth: int = MAX_DEPTH,
                       rr_start_depth: int = RR_START_DEPTH,
                       sort_mode: str = "mort_oct", nee: bool = False,
-                      stats=None) -> torch.Tensor:
+                      stats=None, pix_slots=None,
+                      num_real=None) -> torch.Tensor:
     """"mx" drop-in for ops.wavefront.render_samples_wavefront: the [H, W, 3]
     radiance SUM of ``num_samples`` passes on ``cam_data``'s device.
     ``sort_mode`` is "mort_oct" or "none" ("sig_mort" needs a BrickSet).
     ``stats``, a dict, gets the traced waves and rays and the rounds and
-    products of ``_mx_rounds`` added to it."""
+    products of ``_mx_rounds`` added to it.  ``pix_slots`` and ``num_real``
+    pick the slots and the passes that count (ops/wavefront.py::
+    render_waves)."""
     stats = {} if stats is None else stats
     tracer = lambda scene, o, d, tnear: _trace_mx(scene, o, d, tnear, stats)
     return render_waves(mx, cam_data, width, height, sample_start,
                         num_samples, seed, max_depth, rr_start_depth,
                         sort_mode, nee, mx.scene_lo, mx.scene_hi, tracer,
-                        _record_mx, stats, max_rays=MX_MAX_RAYS_PER_WAVE)
+                        _record_mx, stats, max_rays=MX_MAX_RAYS_PER_WAVE,
+                        pix_slots=pix_slots, num_real=num_real)

@@ -5,6 +5,10 @@ scenes of up to a few hundred primitives (the sphere scenes and the
 Cornell box) every primitive is tested against every ray, in chunks along
 a leading axis, with no traversal.  Ties resolve to the lowest primitive id
 (spheres first, then triangles), as in the JAX package and the megakernel.
+Both searches run under ``torch.no_grad``: a hit id carries no gradient
+(the JAX package stop-grads its hit search, ops/trace.py), and the
+differentiable path (grad/inverse.py) recomputes the hit point from the id,
+so the [chunk, rays] tests stay out of the autograd graph.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ def _tnear_e(tnear):
         else tnear
 
 
+@torch.no_grad()
 def intersect_brute(scene: DeviceScene, org: Vec3, dirn: Vec3, tnear):
     """Closest hit over all primitives.  Returns (prim i32, -1 = miss; t),
     each of the rays' shape."""
@@ -87,6 +92,7 @@ def intersect_brute(scene: DeviceScene, org: Vec3, dirn: Vec3, tnear):
     return best_prim, best_t
 
 
+@torch.no_grad()
 def occluded_brute(scene: DeviceScene, org: Vec3, dirn: Vec3, tnear, tfar):
     """Any-hit over all primitives: True where some primitive lies on the
     segment (tnear, tfar).  The shadow-ray test of point-light NEE; it

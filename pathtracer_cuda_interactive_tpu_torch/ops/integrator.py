@@ -186,6 +186,29 @@ def radiance_with_ray_count(scene: DeviceScene, org: Vec3, dirn: Vec3,
     return L, nrays
 
 
+def radiance_fixed(scene: DeviceScene, org: Vec3, dirn: Vec3,
+                   state: torch.Tensor, num_bounces: int,
+                   use_rr: bool = True, nee: bool = False,
+                   rr_start_depth: int = RR_START_DEPTH) -> Vec3:
+    """Bounded-depth radiance for autograd (grad/inverse.py): exactly
+    ``num_bounces`` calls of ``_bounce`` in a Python loop, with no early
+    exit, so torch records every bounce.  ``use_rr=False`` turns Russian
+    roulette off (its draw still happens).  With ``use_rr=True`` and
+    ``num_bounces <= RR_START_DEPTH + 1`` it equals ``radiance`` at
+    ``max_depth=num_bounces`` bit for bit."""
+    shape = state.shape
+    dev = state.device
+    L = Vec3.zeros(shape, device=dev)
+    T = Vec3.full(shape, (1.0, 1.0, 1.0), device=dev)
+    active = torch.ones(shape, dtype=torch.bool, device=dev)
+    tnear = torch.zeros(shape, dtype=torch.float32, device=dev)
+    for depth in range(num_bounces):
+        org, dirn, T, L, active, tnear, state = _bounce(
+            scene, org, dirn, T, L, active, tnear, state,
+            depth if use_rr else None, nee, rr_start_depth)
+    return L
+
+
 def measure_path_stats(scene: DeviceScene, cam_data: torch.Tensor,
                        width: int, height: int, sample_start: int,
                        num_samples: int = 1, seed: int = 1984,

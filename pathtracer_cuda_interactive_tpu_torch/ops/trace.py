@@ -15,7 +15,9 @@ JAX package.  Where the JAX walk masks finished rays and runs in fixed
 from the batch after every step, so a step costs only the rays still
 walking.  It is the plain integrator's closest hit above
 ``BRUTE_FORCE_MAX_PRIMS`` primitives and its NEE shadow test, and the
-oracle the wavefront path (ops/wavefront.py) is held to.
+oracle the wavefront path (ops/wavefront.py) is held to.  The walk runs
+under ``torch.no_grad``, as the JAX package stop-grads every input of its
+own: a hit id carries no gradient.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ def _flat(v, shape, device):
                               shape).reshape(-1)
 
 
+@torch.no_grad()
 def _traverse(bvh_nodes: torch.Tensor, org: Vec3, dirn: Vec3, tnear,
               t_limit):
     """(prim [shape] i32, -1 = miss; t [shape] f32) of the closest hit

@@ -717,12 +717,22 @@ def render_waves(scene, cam_data: torch.Tensor, width: int, height: int,
                  sample_start: int, num_samples: int, seed: int,
                  max_depth: int, rr_start_depth: int, sort_mode: str,
                  nee: bool, lo, hi, tracer, record, stats=None,
-                 max_rays: int = MAX_RAYS_PER_WAVE) -> torch.Tensor:
+                 max_rays: int = MAX_RAYS_PER_WAVE, pix_slots=None,
+                 num_real=None) -> torch.Tensor:
     """The wave loop under ``render_samples_wavefront`` and the experiments'
     ``render_samples_mx`` / ``render_samples_mx2``: the radiance SUM of
     ``num_samples`` passes, [H, W, 3], over a scene whose box is ``lo`` ..
     ``hi`` (the sort keys' normalization), traced by ``tracer`` and recorded
     by ``record`` (see ``_render_chunk``).
+
+    ``pix_slots`` (int32, on the camera's device or any) is the slot ->
+    pixel map to render, padding slots holding pixel id ``width*height``;
+    None renders the whole frame's map (``_wave_layout``).  A tile split
+    across devices passes each device its own slice, so the image holds
+    only that slice's pixels.  ``num_real`` (None: all) counts only the
+    first ``min(num_real, num_samples)`` passes from ``sample_start``; only
+    those are rendered, which gives each ray the result of the JAX
+    package's masked passes.
 
     At most ``max_rays`` rays go into a wave: sample batches beyond it
     render in chunks of whole samples, and a frame whose single-sample wave
@@ -746,11 +756,14 @@ def render_waves(scene, cam_data: torch.Tensor, width: int, height: int,
         light_rows = torch.cat([scene.light_pos, scene.light_intensity],
                                dim=1)
     inv_extent = 1.0 / torch.clamp_min(hi - lo, 1e-12)
-    pix_np, _ = _wave_layout(width, height)
-    pix_slots = torch.from_numpy(pix_np).to(dev)
-    n_slots = int(pix_np.shape[0])
+    if pix_slots is None:
+        pix_slots = torch.from_numpy(_wave_layout(width, height)[0])
+    pix_slots = torch.as_tensor(pix_slots, dtype=torch.int32, device=dev)
+    n_slots = int(pix_slots.numel())
+    if num_real is not None:
+        num_samples = max(0, min(num_real, num_samples))
     gran = 32 * LANES
-    slice_len = n_slots
+    slice_len = max(n_slots, 1)
     if n_slots > max_rays:
         slice_len = max(gran, max_rays // gran * gran)
 
@@ -776,7 +789,8 @@ def render_samples_wavefront(brickset: BrickSet, cam_data: torch.Tensor,
                              rr_start_depth: int = RR_START_DEPTH,
                              sort_mode: str = "sig_mort", nee: bool = False,
                              trace: str = "slim", tracer=None,
-                             stats=None) -> torch.Tensor:
+                             stats=None, pix_slots=None,
+                             num_real=None) -> torch.Tensor:
     """Large-scene drop-in for ops.integrator.render_samples: the radiance
     SUM of ``num_samples`` passes, [H, W, 3], on ``cam_data``'s device.
 
@@ -789,11 +803,14 @@ def render_samples_wavefront(brickset: BrickSet, cam_data: torch.Tensor,
     "none").  ``tracer(bricks, org,
     dirn, tnear) -> (t, slot)`` replaces the engine's per-wave trace (the
     chip smoke passes a plain version to hold a kernel to it).  ``stats``, a dict, gets the count of traced waves
-    ("waves") and rays ("rays") added to it."""
+    ("waves") and rays ("rays") added to it.  ``pix_slots`` and
+    ``num_real`` pick the slots and the passes that count (see
+    ``render_waves``)."""
     engine = engine_tracer(trace)
     # scene box = the top tree's root node
     root = brickset.top_boxes[0, :6]
     return render_waves(brickset, cam_data, width, height, sample_start,
                         num_samples, seed, max_depth, rr_start_depth,
                         sort_mode, nee, root[:3], root[3:], tracer or engine,
-                        _record_from_slots, stats)
+                        _record_from_slots, stats, pix_slots=pix_slots,
+                        num_real=num_real)

@@ -270,7 +270,7 @@ def test_render_mx_matches_jax_and_plain(nee):
         assert np.abs(want - got).mean() < 1e-3
 
 
-def test_mx_sample_sum_reproducible_and_sort_modes():
+def test_port_mx_sample_sum_reproducible_and_sort_modes():
     pack, cd = _load()
     mx = MXSet.from_pack(pack)
     kw = dict(max_depth=3)

@@ -340,7 +340,7 @@ def test_render_mx2_matches_jax_and_plain(nee):
         assert np.abs(want - got).mean() < 1e-3
 
 
-def test_mx2_sample_sum_reproducible_and_sort_modes(blob_mx2):
+def test_port_mx2_sample_sum_reproducible_and_sort_modes(blob_mx2):
     _, cd = _load()
     kw = dict(max_depth=3)
     a = mx2.render_samples_mx2(blob_mx2, cd, W, H, 0, 2, **kw)

@@ -419,7 +419,7 @@ def test_pairs_render_matches_jax(engine, nee):
     assert np.abs(ref - got).mean() < 1e-3
 
 
-def test_pairs_reproducible_and_sample_additive():
+def test_port_pairs_reproducible_and_sample_additive():
     bricks, cd = _load(W, H)
     kw = dict(max_depth=2, trace="pairs")
     a = wavefront.render_samples_wavefront(bricks, cd, W, H, 0, 2, **kw)

@@ -214,7 +214,7 @@ def test_integrator_matches_jax_on_the_large_scene(blob, nee):
     assert np.abs(ref - got).mean() < 1e-4
 
 
-def test_wavefront_sample_sum_and_reproducible(blob):
+def test_port_wavefront_sample_sum_and_reproducible(blob):
     bricks, cd = blob[4], blob[5]
     kw = dict(max_depth=3, nee=True)
     a = wavefront.render_samples_wavefront(bricks, cd, W, H, 0, 2, **kw)
