@@ -133,6 +133,21 @@ JAX, and fails with a non-zero exit code if any phase fails:
    scenes/pointlight.xml at 64x48, 2 spp, 3 bounces against the CPU's
    (rtol 1e-3, atol 1e-6), no kernel launch, then one synced step at
    640x480, 2 spp, 6 bounces with its peak memory;
+4k. the viewer (viewer/server.py): a Viewer on port 0 over
+   ProgressiveRenderer on the rect Cornell box at 640x480 (kernel B1), then
+   on the large scene's set in bricks mode (B6): the page, an orbit drag,
+   /state until the camera moved and the sample count restarted, /frame a
+   non-flat PNG of 640x480, the loop's FPS over 3 s beside the synced frame
+   of phase 4 (4c), the wall time of 10 /frame requests while the loop runs
+   (and of 10 reads through render_lock alone, the JAX viewer's read), the
+   path's kernel launched and no other;
+4l. the port's bench (bench.py --rows cbox,bunny) in a subprocess: exit 0
+   and one JSON line with bench.py's keys, every rate and time positive,
+   echoed;
+4m. entry.entry() on cuda (a finite 160x120 image), print_scene on the
+   rect Cornell box, and the native host builders (models/native.py): the
+   large scene's pack (BVH) and brick set (SAH treelets) bit for bit those
+   of the numpy builders, both timed;
 5. the offline CLI on cuda.
 
 Its last two lines are a JSON object describing each kernel (with its
@@ -146,6 +161,8 @@ phase`` give the seconds since the start at the end of each phase.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import shutil
 import statistics
@@ -651,6 +668,221 @@ def grad_phase(dev, counters) -> dict:
             "bytes_before": before}
 
 
+VIEWER_FPS_S = 3.0       # seconds the loop's frames are counted over
+VIEWER_FRAMES = 10       # /frame requests timed while the loop runs
+VIEWER_DEADLINE_S = 60.0
+
+
+def viewer_phase(label, renderer, kernel, counters, synced_ms) -> dict:
+    """Phase 4k on one scene: a Viewer on ``renderer`` (port 0), the page,
+    an orbit drag, /state until the camera moved and the sample count
+    restarted, /frame as a PNG of the renderer's size that is not flat; the
+    loop's FPS over VIEWER_FPS_S beside ``synced_ms`` (the synced frame of
+    the same path in phase 4 or 4c), and the wall time of VIEWER_FRAMES
+    /frame requests.  Beside them, the same number of reads through
+    ``render_lock`` alone from this thread (the JAX viewer's read, which
+    the port's /frame replaces), each given at most 10 s.  ``kernel`` must
+    have launched and no other kernel.  The counters are read after
+    ``Viewer.stop()`` has joined the render thread."""
+    import urllib.request
+
+    from pathtracer_cuda_interactive_tpu_torch.utils import image
+    from pathtracer_cuda_interactive_tpu_torch.viewer.server import Viewer
+
+    for wrapper in counters:
+        wrapper.launches = 0
+    v = Viewer(renderer, port=0)
+    base = f"http://127.0.0.1:{v.port}"
+
+    def get(path):
+        with urllib.request.urlopen(base + path,
+                                    timeout=VIEWER_DEADLINE_S) as resp:
+            return resp.read()
+
+    def post(ev):
+        req = urllib.request.Request(base + "/event",
+                                     data=json.dumps(ev).encode(),
+                                     method="POST")
+        with urllib.request.urlopen(req, timeout=VIEWER_DEADLINE_S) as resp:
+            return resp.read()
+
+    def poll(until, what):
+        deadline = time.monotonic() + VIEWER_DEADLINE_S
+        while time.monotonic() < deadline:
+            st = json.loads(get("/state"))
+            if until(st):
+                return st
+            time.sleep(0.005)
+        raise SystemExit(f"chip_smoke: viewer on {label}: {what} within "
+                         f"{VIEWER_DEADLINE_S} s")
+
+    png_path = png_file(label)
+    v.start()
+    try:
+        if b"Scene Controls" not in get("/"):
+            raise SystemExit(f"chip_smoke: viewer on {label}: no page")
+        poll(lambda st: st["samples"] > 0, "no frame")
+        f0, t0 = v.state.frames, time.perf_counter()
+        time.sleep(VIEWER_FPS_S)
+        fps = (v.state.frames - f0) / (time.perf_counter() - t0)
+        frame_ms = []
+        for _ in range(VIEWER_FRAMES):
+            t0 = time.perf_counter()
+            get("/frame")
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+        lock_ms = []
+        for _ in range(VIEWER_FRAMES):
+            t0 = time.perf_counter()
+            if v.state.render_lock.acquire(timeout=10.0):
+                try:
+                    renderer.framebuffer()
+                finally:
+                    v.state.render_lock.release()
+            lock_ms.append((time.perf_counter() - t0) * 1e3)
+        before = json.loads(get("/state"))
+        post({"type": "orbit_begin", "x": 320, "y": 240})
+        post({"type": "orbit_drag", "x": 360, "y": 230})
+        post({"type": "orbit_drag", "x": 400, "y": 220})
+        post({"type": "orbit_end"})
+        after = poll(lambda st: st["camera"]["lookfrom"]
+                     != before["camera"]["lookfrom"]
+                     and st["samples"] < before["samples"],
+                     "the camera did not move or the count did not restart")
+        png_path.write_bytes(get("/frame"))
+    finally:
+        v.stop()
+    launches = [w.launches for w in counters]
+    img = image.read_png(str(png_path))
+    if img.shape != (renderer.height, renderer.width, 3) or not img.std() > 0:
+        raise SystemExit(f"chip_smoke: viewer on {label}: /frame is "
+                         f"{img.shape}, std {img.std()}")
+    others = [n for w, n in zip(counters, launches) if w is not kernel]
+    if kernel.launches == 0 or any(others):
+        raise SystemExit(f"chip_smoke: viewer on {label}: "
+                         f"{kernel.launches} launches of its kernel, "
+                         f"{others} of the others")
+    out = {"scene": label, "fps": fps, "loop_ms": 1e3 / fps,
+           "synced_frame_ms": synced_ms,
+           "frame_request_median_ms": statistics.median(frame_ms),
+           "frame_request_max_ms": max(frame_ms),
+           "lock_read_median_ms": statistics.median(lock_ms),
+           "lock_read_max_ms": max(lock_ms),
+           "samples_before_move": before["samples"],
+           "samples_after_move": after["samples"],
+           "launches": kernel.launches, "png": str(png_path)}
+    print(f"viewer {label} {renderer.width}x{renderer.height}: loop "
+          f"{fps:.1f} FPS over {VIEWER_FPS_S:.0f} s ({1e3 / fps:.4f} ms a "
+          f"turn; synced frame {synced_ms:.4f} ms); /frame while the loop "
+          f"runs: median {out['frame_request_median_ms']:.2f} ms, max "
+          f"{out['frame_request_max_ms']:.2f} ms of {VIEWER_FRAMES}; a read "
+          f"through render_lock alone: median "
+          f"{out['lock_read_median_ms']:.2f} ms, max "
+          f"{out['lock_read_max_ms']:.2f} ms; orbit: camera moved, samples "
+          f"{before['samples']} -> {after['samples']}; launches "
+          f"{kernel.launches} of {kernel.__name__} and no other")
+    return out
+
+
+def png_file(label: str) -> Path:
+    from pathtracer_cuda_interactive_tpu_torch.ops.cuda_build import BUILD_DIR
+
+    BUILD_DIR.mkdir(exist_ok=True)
+    return BUILD_DIR / f"chip_smoke_viewer_{label.replace(' ', '_')}.png"
+
+
+BENCH_KEYS = ("cbox_synced_latency_ms", "cbox_synced_latency_max_ms",
+              "cbox_synced_fps", "cbox_batched16_msamples_s",
+              "cbox_avg_path_len", "cbox_mrays_s", "bunny_avg_path_len",
+              *(f"bunny_{mode}_{key}" for mode in ("wavefront", "bricks")
+                for key in ("msamples_s", "init_s", "first_step_s",
+                            "mrays_s")))
+BENCH_TIMEOUT_S = 300
+
+
+def bench_phase() -> dict:
+    """Phase 4l: the port's bench with its cbox and bunny rows in a
+    subprocess: exit 0 and one JSON line on stdout with bench.py's keys,
+    every rate and time positive."""
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pathtracer_cuda_interactive_tpu_torch.bench",
+         "--rows", "cbox,bunny"], cwd=root, capture_output=True, text=True,
+        timeout=BENCH_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    if proc.returncode != 0 or len(lines) != 1:
+        raise SystemExit(f"chip_smoke: bench exit {proc.returncode}, "
+                         f"{len(lines)} stdout lines; stderr "
+                         f"{proc.stderr[-2000:]}")
+    out = json.loads(lines[0])
+    extra = out["extra"]
+    bad = [k for k in BENCH_KEYS if not extra.get(k, 0) > 0]
+    if set(out) != {"metric", "value", "unit", "vs_baseline", "extra"} \
+            or not out["value"] > 0 or not out["vs_baseline"] > 0 or bad \
+            or extra["bunny_mode"] not in ("wavefront", "bricks"):
+        raise SystemExit(f"chip_smoke: bench line lacks keys or values: "
+                         f"{bad} {lines[0]}")
+    print(f"bench (cbox,bunny) in {seconds:.1f} s:")
+    print(lines[0])
+    return {"seconds": seconds, "line": out}
+
+
+def host_phase(big_parsed) -> dict:
+    """Phase 4m's host builders: the large scene's pack (BVH) and brick set
+    (SAH treelets) with the C++ builders and with PT_TPU_NO_NATIVE set
+    (the numpy builders), every array bit for bit the same, both timed."""
+    import dataclasses
+    import os
+
+    from pathtracer_cuda_interactive_tpu_torch.models import native
+    from pathtracer_cuda_interactive_tpu_torch.models.bricks import BrickSet
+    from pathtracer_cuda_interactive_tpu_torch.models.scenepack import (
+        pack_scene)
+
+    if not native.available():
+        raise SystemExit("chip_smoke: the native builders did not build")
+
+    def build():
+        t0 = time.perf_counter()
+        pack = pack_scene(big_parsed)
+        t1 = time.perf_counter()
+        bricks = BrickSet.from_pack(pack)
+        return pack, bricks, t1 - t0, time.perf_counter() - t1
+
+    pack, bricks, pack_s, bricks_s = build()
+    os.environ["PT_TPU_NO_NATIVE"] = "1"
+    try:
+        ref_pack, ref_bricks, ref_pack_s, ref_bricks_s = build()
+    finally:
+        del os.environ["PT_TPU_NO_NATIVE"]
+
+    def same(a, b):
+        if isinstance(a, torch.Tensor):
+            a, b = a.numpy(), b.numpy()
+        if isinstance(a, np.ndarray):
+            return a.dtype == b.dtype and a.shape == b.shape \
+                and a.tobytes() == b.tobytes()
+        return a == b
+
+    differ = [f.name for f in dataclasses.fields(pack)
+              if not same(getattr(pack, f.name), getattr(ref_pack, f.name))]
+    differ += [f.name for f in dataclasses.fields(bricks)
+               if not same(getattr(bricks, f.name),
+                           getattr(ref_bricks, f.name))]
+    if differ:
+        raise SystemExit(f"chip_smoke: native and numpy builds differ in "
+                         f"{differ}")
+    print(f"host builders, {pack.num_triangles} triangles: pack (BVH) "
+          f"{pack_s:.3f} s native against "
+          f"{ref_pack_s:.3f} s numpy, brick set (SAH treelets) "
+          f"{bricks_s:.3f} s against {ref_bricks_s:.3f} s; every array bit "
+          f"for bit the same (numpy builders 4.03 s in all in PERF.md §5)")
+    return {"pack_native_s": pack_s,
+            "pack_numpy_s": ref_pack_s, "bricks_native_s": bricks_s,
+            "bricks_numpy_s": ref_bricks_s}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -666,8 +898,10 @@ def main(argv=None) -> int:
                          "pathtracer_cuda_interactive_tpu_torch is not "
                          "importable; run this script from the root of a "
                          f"checkout of the repository ({exc})")
+    from pathtracer_cuda_interactive_tpu_torch import entry as entry_points
     from pathtracer_cuda_interactive_tpu_torch.experiments import (
         mx2, mxtrace)
+    from pathtracer_cuda_interactive_tpu_torch.io import print_scene
     from pathtracer_cuda_interactive_tpu_torch.experiments.mx2set import (
         MX2Set)
     from pathtracer_cuda_interactive_tpu_torch.experiments.mxset import MXSet
@@ -1846,6 +2080,47 @@ def main(argv=None) -> int:
     results["grad"] = grad_phase(dev, counters)
 
     stamp("4j done")
+    # -- 4k. the viewer (viewer/server.py) on the card: the rect Cornell box
+    # at the main path's shape (B1), then the large scene's set from 3b in
+    # bricks mode (B6), each beside its synced frame of phase 4 or 4c
+    viewer_renderer = ProgressiveRenderer.from_xml(
+        str(SCENES_DIR / "cbox_rect.xml"), width=MAIN_W, height=MAIN_H,
+        device="cuda")
+    results["viewer"] = [viewer_phase("cbox_rect", viewer_renderer,
+                                      mk.megakernel_cuda, counters,
+                                      median_ms)]
+    viewer_renderer = ProgressiveRenderer(
+        big_host, big_cam, MAIN_W, MAIN_H,
+        RenderConfig(large_scene_mode="bricks"), device="cuda")
+    if viewer_renderer.mode != "bricks":
+        raise SystemExit(f"chip_smoke: viewer took {viewer_renderer.mode}")
+    results["viewer"].append(viewer_phase(
+        "blob_box_x3 bricks", viewer_renderer, bk.render_bricks_cuda,
+        counters, bricks_median))
+    del viewer_renderer
+    torch.cuda.empty_cache()
+
+    stamp("4k done")
+    # -- 4l. the port's bench, cbox and bunny rows, in a subprocess
+    results["bench"] = bench_phase()
+
+    stamp("4l done")
+    # -- 4m. the entry point, the scene printer and the native builders
+    fn, fargs = entry_points.entry("cuda")
+    entry_img = fn(*fargs)
+    if entry_img.device.type != "cuda" or entry_img.shape != (120, 160, 3) \
+            or not torch.isfinite(entry_img).all():
+        raise SystemExit("chip_smoke: entry() gave no finite image on cuda")
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        rc = print_scene.main([str(SCENES_DIR / "cbox_rect.xml")])
+    if rc != 0 or not printed.getvalue().startswith("Scene["):
+        raise SystemExit("chip_smoke: print_scene failed")
+    print(f"entry() on cuda: image {tuple(entry_img.shape)}, mean "
+          f"{float(entry_img.mean()):.5f}; print_scene: "
+          f"{len(printed.getvalue().splitlines())} lines")
+    results["host"] = host_phase(big_parsed)
+
+    stamp("4m done")
     # -- 4d. the kernel-stats entry point (kernel B3) ----------------------
     zero_counts()
     if kernel_stats.main(["--out", args.out] if args.out else []) != 0:
@@ -1872,7 +2147,8 @@ def main(argv=None) -> int:
         out = Path(args.out)
         out.mkdir(parents=True, exist_ok=True)
         for path in (png, big_png, bricks_png, slim2_png, pairs_png, mx2_png,
-                     mx_png, cli_png):
+                     mx_png, cli_png,
+                     *(Path(v["png"]) for v in results["viewer"])):
             shutil.copy(path, out / path.name)
         (out / "chip_smoke_results.json").write_text(
             json.dumps(results, indent=1))

@@ -8,10 +8,9 @@ flattened to the same preorder skip-link layout as models/bvh.py, becomes
 the top tree the brick trace walks.  Build is vectorized numpy per node;
 total work is O(P · depth), a few seconds at 300k prims.
 
-The JAX package dispatches to a C++ twin (its models/native.py and
-native/sah_treelets.cpp) when that library is built; the port keeps only
-this numpy body, which is the JAX package's semantic reference for the twin
-(tests/test_native.py) and gives the same trees.
+``build_sah_treelets`` dispatches to a C++ twin (models/native.py,
+native/sah_treelets.cpp) when that library builds; the numpy body is its
+reference and gives the same trees (tests/test_torch_native.py).
 """
 
 from __future__ import annotations
@@ -106,7 +105,24 @@ def build_sah_treelets(prim_min: np.ndarray, prim_max: np.ndarray,
                        leaf_size: int = 512) -> SAHTreelets:
     """Top-down binned-SAH build terminating at ≤ ``leaf_size``-prim
     leaves.  Depth is bounded: past MAX_SAH_DEPTH the split degrades to
-    balanced centroid-median halves (adds ≤ log2(n) further levels)."""
+    balanced centroid-median halves (adds ≤ log2(n) further levels).
+
+    Dispatches to the C++ twin (native/sah_treelets.cpp via
+    models/native.py: the same numerics, bit-identical output) when it is
+    available; the numpy body is the always-available fallback and the
+    reference."""
+    from .native import build_sah_treelets_native
+    nat = build_sah_treelets_native(prim_min, prim_max, leaf_size)
+    if nat is not None:
+        return SAHTreelets(node_min=nat[0], node_max=nat[1], skip=nat[2],
+                           leaf_of_node=nat[3], order=nat[4],
+                           leaf_start=nat[5], leaf_count=nat[6],
+                           depth=nat[7])
+    return _build_sah_treelets_numpy(prim_min, prim_max, leaf_size)
+
+
+def _build_sah_treelets_numpy(prim_min: np.ndarray, prim_max: np.ndarray,
+                              leaf_size: int = 512) -> SAHTreelets:
     prim_min = np.asarray(prim_min, np.float64)
     prim_max = np.asarray(prim_max, np.float64)
     P = int(prim_min.shape[0])

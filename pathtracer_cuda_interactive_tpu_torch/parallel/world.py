@@ -1,12 +1,14 @@
-"""Start a ``gloo`` world of processes on one host, each a rank of a
-process group: what ``torchrun --nproc_per_node N`` does, from inside a
-program (the tests and chip_smoke.py use it).
+"""Start a world of processes on one host, each a rank of a process
+group: what ``torchrun --nproc_per_node N`` does, from inside a program
+(the tests, entry.py's dry run and chip_smoke.py use it).
 
     results = run_world(fn, 4, workdir, args=(...,))
 
 runs ``fn(rank, world_size, *args)`` in four spawned processes after
-``init_process_group("gloo")`` and returns each rank's return value.  The
-ranks may render on the CPU or share a card with CUDA tensors.  ``fn`` must
+``init_process_group("gloo")`` and returns each rank's return value.  Under
+``gloo`` the ranks may render on the CPU or share a card with CUDA tensors;
+with ``backend="nccl"`` rank r owns card r (``torch.cuda.set_device``
+before the group starts), so the host needs a card per rank.  ``fn`` must
 be importable by its module path (a module-level function): a spawned
 process starts from a fresh import, of the main script too.  The
 rendezvous is a file in ``workdir``, so two worlds with two directories
@@ -25,12 +27,14 @@ import torch.distributed as dist
 
 
 def _rank_main(rank: int, world_size: int, workdir: str, timeout: float,
-               fn, args) -> None:
+               fn, args, backend: str) -> None:
     # ranks share the host's cores: one thread each, or they spin against
     # each other
     torch.set_num_threads(1)
+    if backend == "nccl":
+        torch.cuda.set_device(rank)
     dist.init_process_group(
-        "gloo", init_method=f"file://{Path(workdir) / 'rendezvous'}",
+        backend, init_method=f"file://{Path(workdir) / 'rendezvous'}",
         world_size=world_size, rank=rank, timeout=timedelta(seconds=timeout))
     try:
         out = fn(rank, world_size, *args)
@@ -40,9 +44,10 @@ def _rank_main(rank: int, world_size: int, workdir: str, timeout: float,
 
 
 def run_world(fn, world_size: int, workdir, args=(),
-              timeout: float = 300.0) -> list:
+              timeout: float = 300.0, backend: str = "gloo") -> list:
     """Run ``fn(rank, world_size, *args)`` on every rank of a new world of
-    ``world_size`` spawned processes and return their results by rank.
+    ``world_size`` spawned processes in a ``backend`` process group
+    ("gloo" or "nccl") and return their results by rank.
     Raises TimeoutError when the world has not finished within ``timeout``
     seconds (its processes are ended) and RuntimeError when a rank
     failed."""
@@ -52,7 +57,7 @@ def run_world(fn, world_size: int, workdir, args=(),
     ctx = multiprocessing.get_context("spawn")
     procs = [ctx.Process(target=_rank_main,
                          args=(r, world_size, str(workdir), timeout, fn,
-                               args))
+                               args, backend))
              for r in range(world_size)]
     for p in procs:
         p.start()

@@ -5,12 +5,10 @@ reference scatters its knobs across compile-time constants (SURVEY.md §5
 "Config/flag system": MAX_DEPTH 50 radiance.cuh:12, RR start depth 5
 radiance.cuh:68, camera epsilon 1e-5 main.cu:298, default 2 samples/frame
 main.cu:131, RNG seed 1984 main.cu:61, UI ranges imgui_manager.cpp:101-105).
-Here they live in one dataclass.  Fields of the JAX package's config that
-nothing in the port reads yet return with their slices: the viewer's
-(``fov_*``, ``move_speed``, ``mouse_sensitivity``); its ``setup_jax`` has
-no counterpart.  The large-scene fields keep the JAX defaults; the port
-runs every value of ``wavefront_trace`` (ops/wavefront.py::parse_engine)
-and of ``large_scene_mode`` (render/renderer.py).  The JAX package's
+Here they live in one dataclass, with the JAX package's defaults; its
+``setup_jax`` has no counterpart.  The port runs every value of
+``wavefront_trace`` (ops/wavefront.py::parse_engine) and of
+``large_scene_mode`` (render/renderer.py).  The JAX package's
 ``wavefront_compact_tail`` and ``wavefront_tail_trace`` shaped its
 compaction ladder; the port compacts after every wave instead
 (ops/wavefront.py), so they have no counterpart.
@@ -28,8 +26,12 @@ class RenderConfig:
     camera_epsilon: float = 1e-5   # main.cu:298
     samples_per_frame: int = 2     # main.cu:131
     seed: int = 1984               # main.cu:61
+    fov_min: float = 10.0          # imgui_manager.cpp:101
+    fov_max: float = 120.0
     spf_min: int = 1               # imgui_manager.cpp:105
     spf_max: int = 10
+    move_speed: float = 0.5        # imgui_manager.cpp WASD speed (:143)
+    mouse_sensitivity: float = 0.1  # imgui_manager.cpp orbit (:254)
     # block on the device each frame (cudaDeviceSynchronize analog,
     # main.cu:336), which makes frame_ms the frame's device time.  False
     # lets frames queue on the stream, for throughput runs.

@@ -289,10 +289,9 @@ def test_config_matches_the_jax_defaults():
     theirs = dataclasses.asdict(JaxRenderConfig())
     for key, value in ours.items():
         assert theirs[key] == value, key
-    # the viewer's fields return with the viewer; the compaction ladder's
-    # have no counterpart (the port compacts after every wave)
+    # the compaction ladder's fields have no counterpart (the port
+    # compacts after every wave)
     assert set(theirs) - set(ours) == {
-        "fov_min", "fov_max", "move_speed", "mouse_sensitivity",
         "wavefront_compact_tail", "wavefront_tail_trace"}
 
 
