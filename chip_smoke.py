@@ -19,6 +19,9 @@ JAX, and fails with a non-zero exit code if any phase fails:
    times and ptxas reports;
 2e. the build of csrc/mx2_trace.cu (kernel B7), the sixth source of the
    same parallel build, with its time and ptxas report;
+2f. the build of csrc/wave_step.cu (the wavefront's bounce step: W1 the hit
+   record, W2 the shading with its first half, the shadow rays, and W3 the
+   sort key), the seventh source of the same parallel build;
 3. the megakernel against its plain torch version on the card, on the
    in-repo sphere, Cornell-box and point-light scenes and on two larger
    tables made from the Cornell box (models/subdivide.py::table_scenes: 42
@@ -31,7 +34,10 @@ JAX, and fails with a non-zero exit code if any phase fails:
 3b. kernel B2 against its plain version: on the primary wave and a sorted
    first-bounce wave of a 640x480, 2-sample render of scenes/blob_box.xml;
    in whole wavefront renders at 160x120, depth 4 (shallow) and 12
-   (statistical), NEE off and on; then the large scene is built (blob_box
+   (statistical), NEE off and on; the same renders through W1-W3 against
+   the same loop through their plain versions (ops/wave_step.py::
+   PLAIN_STEPS), and one with every plain version of the bounce step made
+   to raise; then the large scene is built (blob_box
    subdivided three levels, 327,692 triangles) with its walk table (the
    compact table kernels B2, B3 and B6 read: its bytes and build time are
    printed), and on its primary and first-bounce waves of a 640x480,
@@ -45,7 +51,15 @@ JAX, and fails with a non-zero exit code if any phase fails:
 3d. kernel B6 against its plain version: blob_box at 160x120, 2 samples,
    depth 4 (shallow criterion) and 12 (statistical), and the large scene at
    640x480, 2 samples, depth 4; B6 timed at the main path's shape (640x480,
-   2 samples, depth 50) by CUDA events, its plain version once;
+   2 samples, depth 50) by CUDA events, its plain version once; that
+   frame's image bit for bit the one B6 rendered before its bounce moved
+   into csrc/bounce.cuh (a digest);
+3i. the bounce step's kernels against their plain versions on every call
+   of a 640x480, 2-sample render of the large scene (depth 50; and with NEE
+   at depth 4): W1, W3 and the shadow rays bit for bit on every ray, W2's
+   states, pixels, samples and live flags bit for bit and its floats within
+   rtol 1e-4 on all but 1e-4 of the rays; each timed, with its plain
+   version, on the primary and the sorted first-bounce wave;
 3e. kernel B4 (B2's walk with the deferred leaf, engine "slim2") on the
    four waves of 3b: t and slot equal to its plain version over the walk
    table and to kernel B2 bit for bit; whole wavefront renders at 160x120
@@ -82,14 +96,16 @@ JAX, and fails with a non-zero exit code if any phase fails:
    resets, a finite non-flat image and a PNG;
 4b. the large-scene main path: ProgressiveRenderer on the subdivided
    blob_box at 640x480, 2 samples per frame, depth 50, on cuda (the
-   sorted wavefront) — 10 synced frames after warmup, B2's launches
-   against the waves the renderer traced, a camera reset, a finite
-   non-flat image and a PNG;
+   sorted wavefront) — 10 synced frames after warmup with every plain
+   version of the bounce step made to raise, B2's, W1's and W2's launches
+   against the waves the renderer traced and W3's against the sorted ones,
+   the profile of 5 more frames (render/profile_wavefront.py: launches per
+   frame, busy share), a camera reset, a finite non-flat image and a PNG;
 4c. the large scene's "bricks" path in the same call:
    ProgressiveRenderer with RenderConfig(large_scene_mode="bricks") at the
    same shape — 10 synced frames after warmup, one B6 launch per frame and
-   no B2 launch, a camera reset, a finite non-flat image and a PNG, NEE
-   rerouted to the wavefront, the median frame beside 4b's;
+   no B2 or bounce-step launch, a camera reset, a finite non-flat image and
+   a PNG, NEE rerouted to the wavefront, the median frame beside 4b's;
 4d. the kernel-stats entry point (render/kernel_stats.py): B3's per-ray
    counters and B3 against B2 on the large scene's waves, with B3's
    launches counted;
@@ -108,7 +124,8 @@ JAX, and fails with a non-zero exit code if any phase fails:
 4h. the same scene with large_scene_mode="mx" at 640x480, 2 samples per
    frame: one synced frame, timed, at depth 4 (a depth-50 frame takes
    minutes: a bounce packet takes a round for nearly every one of the
-   scene's bricks), no kernel launch, a finite non-flat image that meets
+   scene's bricks), no trace kernel launch (W2 and W3 on its waves), a
+   finite non-flat image that meets
    the statistical criterion against the wavefront's at that depth;
 4i. the tile and sample split (parallel/sharding.py) in a world of one
    rank, an nccl process group on this card: render_samples_sharded at 2
@@ -150,6 +167,9 @@ JAX, and fails with a non-zero exit code if any phase fails:
    of the numpy builders, both timed;
 5. the offline CLI on cuda.
 
+The wave paths (4b, 4e-4h) launch W2 and W3 on every wave (W1 on the
+brick engines' waves), and the other paths none of them.
+
 Its last two lines are a JSON object describing each kernel (with its
 bound: the larger of the bytes the function must move over the card's
 memory rate and the operations this run's data need over its FP32 rate)
@@ -162,6 +182,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import hashlib
 import io
 import json
 import shutil
@@ -301,6 +322,95 @@ def record_check(rec, counts, ref, ref_counts) -> dict:
             "max_abs_err": err}
 
 
+# float32 operations per ray of the bounce step's kernels, counted from
+# csrc/wave_step.cu (the RNG's integer steps not counted): W1's (u, v) solve
+# (two cross products, three dot products, two divisions) and triangle
+# record (position, interpolated normal), and a sphere test with its record
+# per resident sphere; W2's bounce (normalize, the BSDF's frame, sampled
+# direction and evaluation, the throughput and roulette); a shadow ray's
+# direction and distance per light; W3's "sig_mort" key adds a slab test
+# (BOX_OPS) per coarse box to the Morton code's 21.
+W1_OPS, SPHERE_OPS, W2_OPS, LIGHT_OPS, MORTON_OPS = 70, 50, 160, 14, 21
+
+
+def wave_step_wrappers() -> tuple:
+    """The bounce step's kernel wrappers (ops/wave_step.py), each counting
+    its launches in ``launches``: W1, W2, W3 and W2's first half, the
+    shadow rays."""
+    from pathtracer_cuda_interactive_tpu_torch.ops import wave_step as ws
+    return (ws.wave_record_cuda, ws.wave_shade_cuda, ws.wave_sort_key_cuda,
+            ws.wave_shadow_rays_cuda)
+
+
+def hold_wave_steps(log, label: str) -> list:
+    """Each call of the bounce step that a render logged
+    (ops/wave_step.py::recording_steps), through its kernel and through its
+    plain version on the same inputs: W1 ("record"), W3 ("key") and the
+    shadow rays bit for bit on every ray; W2 ("shade") its state, pixel,
+    sample and live rows bit for bit on every ray and its floats (the new
+    table's 12 float rows, and the radiance written where a path ended)
+    within rtol 1e-4 on all but 1e-4 of the rays (the ulps of cosf, sinf
+    and powf).  A key belongs to the wave it orders."""
+    from pathtracer_cuda_interactive_tpu_torch.ops import wave_step as ws
+    out, wave = [], 0
+    for name, args in log:
+        if name == "shade":
+            got_out, ref_out = args[6].clone(), args[6].clone()
+            got = ws.wave_shade_cuda(*args[:6], got_out, *args[7:])
+            ref = ws.shade_plain(*args[:6], ref_out, *args[7:])
+            _, pix, samp = ws.int_rows(ref)
+            at = lambda o: o[samp.long(), pix.long()].T
+            g = torch.cat([got[:12], at(got_out)])
+            r = torch.cat([ref[:12], at(ref_out)])
+            same_ints = torch.equal(got[12:].view(torch.int32),
+                                    ref[12:].view(torch.int32))
+            share = float((~torch.isclose(g, r, rtol=1e-4, atol=1e-6)
+                           .all(0)).float().mean())
+            ok = same_ints and share <= 1e-4
+        else:
+            got = getattr(ws.STEPS, name)(*args)
+            ref = getattr(ws.PLAIN_STEPS, name)(*args)
+            n = int(got.shape[-1])
+            g, r = got.reshape(-1, n), ref.reshape(-1, n)
+            share = float((g.view(torch.int32) != r.view(torch.int32))
+                          .any(0).float().mean())
+            ok = share == 0.0
+        torch.cuda.synchronize()
+        g, r = g.double(), r.double()
+        both = torch.isfinite(g) & torch.isfinite(r)
+        err = float((g - r).abs()[both].max()) if both.any() else 0.0
+        out.append({"kernel": name, "scene": label, "wave": wave,
+                    "rays": int(g.shape[-1]), "ok": bool(ok),
+                    "mismatch_share": share, "max_abs_err": err})
+        if name == "shade":
+            wave += 1
+    return out
+
+
+@contextlib.contextmanager
+def plain_versions_refused():
+    """While it lasts, every plain version of the bounce step
+    (ops/wave_step.py) raises: a render on the card inside runs none of
+    their torch ops."""
+    from pathtracer_cuda_interactive_tpu_torch.ops import wave_step as ws
+    names = ("_record_from_slots", "_shade", "_nee_term", "_sig_key",
+             "_sort_key", "_sphere_tmin", "_light_dir", "record_plain",
+             "shade_plain", "sort_key_plain", "shadow_rays_plain")
+    saved = {name: getattr(ws, name) for name in names}
+
+    def refuse(*args, **kwargs):
+        raise SystemExit("chip_smoke: a plain version of the bounce step "
+                         "ran on the card's path")
+
+    try:
+        for name in names:
+            setattr(ws, name, refuse)
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(ws, name, fn)
+
+
 def kernel_wrappers() -> tuple:
     """The seven kernels' wrappers, each counting its launches in
     ``launches``: B1, B2, B3, B6, B4, B5, B7."""
@@ -315,6 +425,12 @@ def kernel_wrappers() -> tuple:
             wf.trace_bricks_slim2_cuda, pt.trace_pairs_cuda,
             mx2.trace_mx2_cuda)
 
+
+# The digest (sha256 of the float32 bytes) of B6's 640x480, 2-sample,
+# depth-50 frame of the large scene (phase 3d): the image B6 rendered before
+# its bounce moved into csrc/bounce.cuh, on an NVIDIA H100 80GB HBM3.  A
+# change that moves B6's bits on purpose updates it.
+B6_DIGEST = "8540fd4481f1990d92004613fc24321c02a11801258b9472e734a195c5ed38ed"
 
 GRAD_W, GRAD_H, GRAD_BOUNCES = 64, 48, 3
 
@@ -919,6 +1035,7 @@ def main(argv=None) -> int:
     from pathtracer_cuda_interactive_tpu_torch.ops import integrator
     from pathtracer_cuda_interactive_tpu_torch.ops import megakernel as mk
     from pathtracer_cuda_interactive_tpu_torch.ops import pairtrace as pt
+    from pathtracer_cuda_interactive_tpu_torch.ops import wave_step as ws
     from pathtracer_cuda_interactive_tpu_torch.ops import wavefront as wf
     from pathtracer_cuda_interactive_tpu_torch.ops.brickkernel import (
         trace_bricks_full_plain, trace_bricks_pipelined_plain,
@@ -926,7 +1043,7 @@ def main(argv=None) -> int:
     from pathtracer_cuda_interactive_tpu_torch.ops.camera import (
         Camera, camera_ray_data)
     from pathtracer_cuda_interactive_tpu_torch.render import (
-        kernel_stats, offline)
+        kernel_stats, offline, profile_wavefront)
     from pathtracer_cuda_interactive_tpu_torch.render.renderer import (
         ProgressiveRenderer)
     from pathtracer_cuda_interactive_tpu_torch.utils.config import (
@@ -948,31 +1065,35 @@ def main(argv=None) -> int:
           f"device 0: {kind}")
     results["card"] = card
 
-    # -- 2, 2b, 2c, 2d and 2e. the kernel builds: one nvcc per source,
+    # -- 2, 2b, 2c, 2d, 2e and 2f. the kernel builds: one nvcc per source,
     # started together
     t0 = time.perf_counter()
     built = cuda_build.build_all([mk.SOURCE, wf.SOURCE, bk.SOURCE,
-                                  wf.SLIM2_SOURCE, pt.SOURCE, mx2.SOURCE])
+                                  wf.SLIM2_SOURCE, pt.SOURCE, mx2.SOURCE,
+                                  ws.SOURCE])
     mk.load_library()
     wf.load_library()
     bk.load_library()
     wf.load_slim2_library()
     pt.load_library()
     mx2.load_library()
+    ws.load_library()
     build_s = time.perf_counter() - t0
     print(f"megakernel build {built[mk.SOURCE]:.2f} s, brick_trace build "
           f"{built[wf.SOURCE]:.2f} s, brick_render build "
           f"{built[bk.SOURCE]:.2f} s, brick_trace_slim2 build "
           f"{built[wf.SLIM2_SOURCE]:.2f} s, pair_trace build "
           f"{built[pt.SOURCE]:.2f} s, mx2_trace build "
-          f"{built[mx2.SOURCE]:.2f} s (in parallel); build+load "
+          f"{built[mx2.SOURCE]:.2f} s, wave_step build "
+          f"{built[ws.SOURCE]:.2f} s (in parallel); build+load "
           f"{build_s:.2f} s")
     results.update(build_s=build_s, megakernel_build_s=built[mk.SOURCE],
                    brick_trace_build_s=built[wf.SOURCE],
                    brick_render_build_s=built[bk.SOURCE],
                    brick_trace_slim2_build_s=built[wf.SLIM2_SOURCE],
                    pair_trace_build_s=built[pt.SOURCE],
-                   mx2_trace_build_s=built[mx2.SOURCE])
+                   mx2_trace_build_s=built[mx2.SOURCE],
+                   wave_step_build_s=built[ws.SOURCE])
 
     stamp("builds done")
     # -- 3. kernel against its plain version on the card ------------------
@@ -1383,6 +1504,30 @@ def main(argv=None) -> int:
                   f"max abs err {res['max_abs_err']:.3e}, "
                   f"mean abs err {res['mean_abs_err']:.3e} "
                   f"-> {'ok' if res['ok'] else 'FAIL'}")
+    # the same renders through W1-W3 against the same loop through their
+    # plain versions; the kernels' run with every plain version refused
+    w_renders = []
+    for nee in (False, True):
+        for depth, check in ((4, wave_check), (12, deep_check)):
+            with plain_versions_refused():
+                got = wf.render_samples_wavefront(blob, cd, SMALL_W, SMALL_H,
+                                                  0, SPP, max_depth=depth,
+                                                  nee=nee)
+                torch.cuda.synchronize()
+            ref = wf.render_samples_wavefront(blob, cd, SMALL_W, SMALL_H, 0,
+                                              SPP, max_depth=depth, nee=nee,
+                                              steps=ws.PLAIN_STEPS)
+            torch.cuda.synchronize()
+            res = check(got.cpu().numpy(), ref.cpu().numpy())
+            res.update(scene="blob_box", nee=nee, width=SMALL_W,
+                       height=SMALL_H, spp=SPP, depth=depth)
+            w_renders.append(res)
+            print(f"wavefront W1-W3 vs plain steps blob_box nee={nee} "
+                  f"{SMALL_W}x{SMALL_H} depth {depth} ({res['criterion']}): "
+                  f"mismatch share {res['mismatch_share']:.3e}, "
+                  f"max abs err {res['max_abs_err']:.3e}, "
+                  f"mean abs err {res['mean_abs_err']:.3e} "
+                  f"-> {'ok' if res['ok'] else 'FAIL'}")
     b6_checks = [compare_render(blob, cd, SMALL_W, SMALL_H, depth, check,
                                 "blob_box")
                  for depth, check in ((4, wave_check), (12, deep_check))]
@@ -1409,6 +1554,7 @@ def main(argv=None) -> int:
             nee=nee), mx_check)
     del blob, blob_mx2, blob_mx, blob_scene
     require_agreement("B2", b2_checks + b2_renders)
+    require_agreement("W1-W3", w_renders)
     require_agreement("B3", b3_checks)
     require_agreement("B6", b6_checks)
     for engine in ENGINES:
@@ -1647,10 +1793,16 @@ def main(argv=None) -> int:
     stop.record()
     stop.synchronize()
     b6_plain_ms = start.elapsed_time(stop)
-    deep = deep_check(bk.render_samples_bricks(big, cd, MAIN_W, MAIN_H, 0,
-                                               SPP).cpu().numpy(),
-                      plain_img.cpu().numpy())
-    del plain_img
+    b6_img = bk.render_samples_bricks(big, cd, MAIN_W, MAIN_H, 0,
+                                      SPP).cpu().numpy()
+    deep = deep_check(b6_img, plain_img.cpu().numpy())
+    b6_digest = hashlib.sha256(b6_img.tobytes()).hexdigest()
+    if b6_digest != B6_DIGEST:
+        raise SystemExit(f"chip_smoke: B6's depth-50 frame moved: digest "
+                         f"{b6_digest}, not {B6_DIGEST}")
+    print(f"B6 depth-50 frame digest {b6_digest}: bit for bit the frame "
+          f"before csrc/bounce.cuh")
+    del plain_img, b6_img
     print(f"B6 timing blob_box x3 {MAIN_W}x{MAIN_H} {SPP} spp depth 50: "
           f"kernel {b6_ms:.4f} ms {b6_timings}, plain {b6_plain_ms:.2f} ms "
           f"(one run); kernel vs that plain render, reported only: "
@@ -1669,13 +1821,139 @@ def main(argv=None) -> int:
                    walk_table_build_ms=walk_table.build_s * 1e3,
                    walk_nodes="global")
 
+    stamp("3d done")
+    # -- 3i. the bounce step's kernels (csrc/wave_step.cu) against their
+    # plain versions on every call of two renders of the large scene at the
+    # main path's shape, and their times on its primary and sorted
+    # first-bounce waves
+    w_wrappers = wave_step_wrappers()
+    w_logs = {}
+    for label, kw in (("blob_box x3", {}),
+                      ("blob_box x3 nee depth 4", {"nee": True,
+                                                   "max_depth": 4})):
+        for wrapper in w_wrappers:
+            wrapper.launches = 0
+        w_logs[label] = []
+        wf.render_samples_wavefront(big, cd, MAIN_W, MAIN_H, 0, SPP,
+                                    steps=ws.recording_steps(w_logs[label]),
+                                    **kw)
+        torch.cuda.synchronize()
+    # the NEE render's: its shadow rays ran on every wave
+    shadow_launches = ws.wave_shadow_rays_cuda.launches
+    w_checks = [c for label, log in w_logs.items()
+                for c in hold_wave_steps(log, label)]
+    for label in w_logs:
+        for name in ("record", "shadow_rays", "shade", "key"):
+            rows = [c for c in w_checks
+                    if c["scene"] == label and c["kernel"] == name]
+            if rows:
+                print(f"{name} kernel vs plain {label} {MAIN_W}x{MAIN_H}: "
+                      f"{len(rows)} calls over waves 0-{rows[-1]['wave']}, "
+                      f"{sum(c['rays'] for c in rows)} rays, mismatch share "
+                      f"at most {max(c['mismatch_share'] for c in rows):.3e}"
+                      f", max abs err "
+                      f"{max(c['max_abs_err'] for c in rows):.3e} -> "
+                      f"{'ok' if all(c['ok'] for c in rows) else 'FAIL'}")
+    require_agreement("W1-W3", w_checks)
+
+    def wave_calls(log, wave):
+        """{name: args} of the first logged call of each step of ``wave``
+        (a key belongs to the wave it orders)."""
+        found, at = {}, 0
+        for name, args in log:
+            if at == wave:
+                found.setdefault(name, args)
+            at += name == "shade"
+        return found
+
+    w_ms = {}
+    for wave, wave_name in ((0, "primary"), (1, "bounce 1")):
+        calls = wave_calls(w_logs["blob_box x3"], wave)
+        nee_calls = wave_calls(w_logs["blob_box x3 nee depth 4"], wave)
+        rec, shade = calls["record"], calls["shade"]
+        shadow = nee_calls["shadow_rays"]
+        scratch = shade[6].clone()
+        shaded = (*shade[:6], scratch, *shade[7:])
+        runs = {"W1": (lambda: ws.wave_record_cuda(*rec),
+                       lambda: ws.record_plain(*rec)),
+                "W2": (lambda: ws.wave_shade_cuda(*shaded),
+                       lambda: ws.shade_plain(*shaded)),
+                "shadow": (lambda: ws.wave_shadow_rays_cuda(*shadow),
+                           lambda: ws.shadow_rays_plain(*shadow))}
+        if "key" in calls:
+            runs["W3"] = (lambda: ws.wave_sort_key_cuda(*calls["key"]),
+                          lambda: ws.sort_key_plain(*calls["key"]))
+        w_ms[wave_name] = {}
+        for kernel, (fn, plain) in runs.items():
+            times = {"kernel": [], "plain": []}
+            for which in ("plain", "kernel", "kernel", "plain"):
+                times[which].append(cuda_ms(fn, 20) if which == "kernel"
+                                    else cuda_ms(plain, 3))
+            w_ms[wave_name][kernel] = {
+                "ms": statistics.median(times["kernel"]),
+                "plain_ms": statistics.median(times["plain"]),
+                "timings": times}
+        new = ws.wave_shade_cuda(*shaded)
+        torch.cuda.synchronize()
+        rays = int(rec[1].numel())
+        slot = rec[2]
+        winners = int(torch.unique(slot[slot >= 0]).numel())
+        ended = int((new[ws.LIVE] == 0).sum())
+        row = w_ms[wave_name]
+        row.update(rays=rays, winners=winners, ended=ended)
+        print(f"W1-W3 timing blob_box x3 {MAIN_W}x{MAIN_H} {wave_name} wave "
+              f"({rays} rays, {winners} distinct winners, {ended} paths "
+              f"ended): " + ", ".join(
+                  f"{k} {v['ms']:.4f} ms (plain {v['plain_ms']:.3f})"
+                  for k, v in row.items() if isinstance(v, dict)))
+    # Bounds on the sorted first-bounce wave: each input read once, each
+    # output written once.  W1 reads the rays (24 bytes), t and slot (8),
+    # each distinct winner's 128-byte record and slot 0's, the sphere table,
+    # and writes the 64-byte record; W2 reads the table and the record (64
+    # bytes each) and writes the new table (64) and 12 bytes a path that
+    # ended; W3 reads the rays and the live flag (28) and the coarse boxes
+    # and writes 4 bytes, and keys the live rays of the wave before; the
+    # shadow rays read the hit position (12) and write 12 bytes a light.
+    bounce = w_ms["bounce 1"]
+    n_b, n_sph = bounce["rays"], big.num_spheres
+    w1_bound = bound(n_b * 96 + (bounce["winners"] + 1 + n_sph) * 128,
+                     n_b * (W1_OPS + n_sph * SPHERE_OPS))
+    w2_bound = bound(n_b * 192 + bounce["ended"] * 12,
+                     n_b * W2_OPS)
+    key_args = wave_calls(w_logs["blob_box x3"], 1)["key"]
+    n_key = int(key_args[0].shape[1])
+    n_coarse = int(big.coarse_boxes.shape[0])
+    w3_bound = bound(n_key * 32 + n_coarse * 32,
+                     n_b * (n_coarse * BOX_OPS + MORTON_OPS))
+    n_lights = int(big.light_pos.shape[0])
+    nee_rays = int(wave_calls(w_logs["blob_box x3 nee depth 4"],
+                              1)["shadow_rays"][0].shape[1])
+    shadow_bound = bound(nee_rays * 12 * (1 + n_lights),
+                         nee_rays * n_lights * LIGHT_OPS)
+    w_err = {name: max(c["max_abs_err"] for c in w_checks
+                       if c["kernel"] == name)
+             for name in ("record", "shadow_rays", "shade", "key")}
+    print(f"W1-W3 bounds (sorted first-bounce wave): W1 "
+          f"{w1_bound['bound_ms']:.4f} ms, W2 {w2_bound['bound_ms']:.4f} ms, "
+          f"W3 {w3_bound['bound_ms']:.4f} ms (over {n_key} rays of the "
+          f"wave before, {n_b} live), shadow rays "
+          f"{shadow_bound['bound_ms']:.4f} ms; launches of the NEE render: "
+          f"shadow rays {shadow_launches}")
+    results.update(w_checks=w_checks, w_renders=w_renders, w_ms=w_ms,
+                   b6_digest=b6_digest)
+    del w_logs
+
     counters = kernel_wrappers()
 
     def zero_counts():
-        for wrapper in counters:
+        for wrapper in counters + w_wrappers:
             wrapper.launches = 0
 
-    stamp("3d done")
+    def w_launches():
+        """Launches of W1, W2, W3 and the shadow rays since zero_counts."""
+        return [wrapper.launches for wrapper in w_wrappers]
+
+    stamp("3i done")
     # -- 4. the main path ---------------------------------------------------
     zero_counts()
     renderer = ProgressiveRenderer.from_xml(
@@ -1689,11 +1967,12 @@ def main(argv=None) -> int:
         renderer.step(sync=True)
         frame_ms.append(renderer.frame_ms)
     launches = mk.megakernel_cuda.launches
-    others = [w.launches for w in counters[1:]]
+    others = [w.launches for w in counters[1:]] + w_launches()
     if launches != warmup + frames or any(others):
         raise SystemExit(f"chip_smoke: {launches} kernel launches for "
                          f"{warmup + frames} frames, {others} launches of "
-                         f"B2, B3, B6, B4, B5, B7")
+                         f"B2, B3, B6, B4, B5, B7, W1, W2, W3 and the "
+                         f"shadow rays")
     median_ms = statistics.median(frame_ms)
     # the highest percentile with ten frames beyond it
     tail_ms = sorted(frame_ms)[frames - 11]
@@ -1753,12 +2032,13 @@ def main(argv=None) -> int:
     zero_counts()
     waves0 = big_renderer.waves
     warmup, big_frames = 2, 10
-    for _ in range(warmup):
-        big_renderer.step(sync=True)
-    big_ms = []
-    for _ in range(big_frames):
-        big_renderer.step(sync=True)
-        big_ms.append(big_renderer.frame_ms)
+    with plain_versions_refused():
+        for _ in range(warmup):
+            big_renderer.step(sync=True)
+        big_ms = []
+        for _ in range(big_frames):
+            big_renderer.step(sync=True)
+            big_ms.append(big_renderer.frame_ms)
     b2_launches = wf.trace_bricks_cuda.launches
     waves = big_renderer.waves - waves0
     others = [w.launches for w in counters if w is not wf.trace_bricks_cuda]
@@ -1766,6 +2046,13 @@ def main(argv=None) -> int:
         raise SystemExit(f"chip_smoke: {b2_launches} B2 launches for {waves} "
                          f"waves, {others} launches of B1, B3, B6, B4, B5, B7 on "
                          f"the large scene")
+    # every wave recorded and shaded by W1 and W2, every wave but a frame's
+    # first keyed by W3, no shadow ray without NEE
+    w1_launches, w2_launches, w3_launches, _ = main_w = w_launches()
+    if main_w != [waves, waves, waves - warmup - big_frames, 0]:
+        raise SystemExit(f"chip_smoke: W1, W2, W3 and shadow-ray launches "
+                         f"{main_w} for {waves} waves in "
+                         f"{warmup + big_frames} frames")
     big_median = statistics.median(big_ms)
     big_msamples = MAIN_W * MAIN_H * SPP / (big_median * 1e-3) / 1e6
     print(f"large main path {MAIN_W}x{MAIN_H} spf {SPP} depth 50: "
@@ -1785,6 +2072,12 @@ def main(argv=None) -> int:
                          "non-flat")
     big_png = mk.BUILD_DIR / "chip_smoke_blob_box_x3.png"
     big_renderer.save_png(str(big_png))
+    print(f"the main path's bounce step: W1 {w1_launches}, W2 "
+          f"{w2_launches}, W3 {w3_launches} launches for {waves} waves, no "
+          f"plain version run; profile of 5 more frames "
+          f"(render/profile_wavefront.py):")
+    big_profile = profile_wavefront.profile_frames(big_renderer, 5,
+                                                   big_median)
     cam = big_renderer.camera
     big_renderer.set_camera(Camera((0.2,) + tuple(cam.lookfrom[1:]),
                                    cam.lookat, cam.up, cam.vfov))
@@ -1801,7 +2094,8 @@ def main(argv=None) -> int:
                    large_msamples_per_s=big_msamples,
                    large_waves_per_frame=waves / (warmup + big_frames),
                    large_avg_path_length=big_path_len,
-                   b2_launches=b2_launches,
+                   b2_launches=b2_launches, w_launches=main_w,
+                   large_profile=big_profile,
                    large_image_mean=float(big_img.mean()))
     del big_renderer
 
@@ -1821,12 +2115,14 @@ def main(argv=None) -> int:
         bricks_renderer.step(sync=True)
         bricks_ms.append(bricks_renderer.frame_ms)
     b6_launches = bk.render_bricks_cuda.launches
-    others = [w.launches for w in counters if w is not bk.render_bricks_cuda]
+    others = [w.launches for w in counters
+              if w is not bk.render_bricks_cuda] + w_launches()
     if b6_launches != warmup + big_frames or any(others) \
             or bricks_renderer.waves != 0:
         raise SystemExit(f"chip_smoke: {b6_launches} B6 launches for "
                          f"{warmup + big_frames} frames, {others} launches "
-                         f"of B1, B2, B3, B4, B5, B7 in bricks mode")
+                         f"of B1, B2, B3, B4, B5, B7, W1, W2, W3 and the "
+                         f"shadow rays in bricks mode")
     bricks_median = statistics.median(bricks_ms)
     bricks_msamples = MAIN_W * MAIN_H * SPP / (bricks_median * 1e-3) / 1e6
     print(f"bricks path {MAIN_W}x{MAIN_H} spf {SPP} depth 50: {big_frames} "
@@ -1870,22 +2166,25 @@ def main(argv=None) -> int:
     stamp("4c done")
     # -- 4e, 4f, 4g. the large scene through the opt-in engines and through
     # "mx2", same shape
-    def drive_engine(scene, config, mode, wrapper, kernel):
+    def drive_engine(scene, config, mode, wrapper, kernel, records):
         """Drive ``scene`` through ProgressiveRenderer with ``config``,
-        which must take ``mode`` and launch only ``wrapper``'s kernel, once
-        per wave."""
+        which must take ``mode`` and launch only ``wrapper``'s trace kernel,
+        once per wave, and the bounce step: W2 on every wave, W3 on every
+        wave but a frame's first, and W1 on every wave where ``records``
+        (the "mx" paths record their hits in torch ops)."""
         engine = config.wavefront_trace if mode == "wavefront" else mode
         renderer = ProgressiveRenderer(scene, big_cam, MAIN_W, MAIN_H, config,
                                        device="cuda")
         if renderer.mode != mode:
             raise SystemExit(f"chip_smoke: {engine} took {renderer.mode}")
         zero_counts()
-        for _ in range(warmup):
-            renderer.step(sync=True)
-        ms = []
-        for _ in range(big_frames):
-            renderer.step(sync=True)
-            ms.append(renderer.frame_ms)
+        with plain_versions_refused():
+            for _ in range(warmup):
+                renderer.step(sync=True)
+            ms = []
+            for _ in range(big_frames):
+                renderer.step(sync=True)
+                ms.append(renderer.frame_ms)
         launches = wrapper.launches
         others = [w.launches for w in counters if w is not wrapper]
         if launches != renderer.waves or launches < warmup + big_frames \
@@ -1893,6 +2192,13 @@ def main(argv=None) -> int:
             raise SystemExit(f"chip_smoke: {launches} {kernel} launches for "
                              f"{renderer.waves} waves with {engine}, {others} "
                              f"launches of the other kernels")
+        waves = renderer.waves
+        step_launches = w_launches()
+        if step_launches != [waves if records else 0, waves,
+                             waves - warmup - big_frames, 0]:
+            raise SystemExit(f"chip_smoke: W1, W2, W3 and shadow-ray "
+                             f"launches {step_launches} for {waves} waves "
+                             f"with {engine}")
         median = statistics.median(ms)
         img = renderer.hdr()
         if not (img.shape == (MAIN_H, MAIN_W, 3) and np.isfinite(img).all()
@@ -1934,18 +2240,18 @@ def main(argv=None) -> int:
         results[f"{engine}_path"] = {
             "frame_ms": ms, "median_frame_ms": median, "launches": launches,
             "waves": renderer.waves, "image_mean": float(img.mean()),
-            "vs_default_engine": against}
+            "w_launches": step_launches, "vs_default_engine": against}
         return launches, path
 
     b4_launches, slim2_png = drive_engine(
         big, RenderConfig(wavefront_trace="slim2"), "wavefront",
-        wf.trace_bricks_slim2_cuda, "B4")
+        wf.trace_bricks_slim2_cuda, "B4", True)
     b5_launches, pairs_png = drive_engine(
         big, RenderConfig(wavefront_trace="pairs"), "wavefront",
-        pt.trace_pairs_cuda, "B5")
+        pt.trace_pairs_cuda, "B5", True)
     b7_launches, mx2_png = drive_engine(
         big_pack, RenderConfig(large_scene_mode="mx2"), "mx2",
-        mx2.trace_mx2_cuda, "B7")
+        mx2.trace_mx2_cuda, "B7", False)
     results.update(engine_checks=engine_checks,
                    engine_render_checks=engine_render_checks,
                    b7_checks=b7_checks, b7_renders=b7_renders,
@@ -1964,8 +2270,16 @@ def main(argv=None) -> int:
     mx_renderer.step(sync=True)
     mx_frame_ms = mx_renderer.frame_ms
     if any(w.launches for w in counters):
-        raise SystemExit("chip_smoke: the mx path launched a kernel: "
+        raise SystemExit("chip_smoke: the mx path launched a trace kernel: "
                          f"{[w.launches for w in counters]}")
+    # its waves come in chunks (a wave is at most MX_MAX_RAYS_PER_WAVE
+    # rays), each with a first wave that W3 does not key
+    mx_w = w_launches()
+    if not (mx_w[0] == mx_w[3] == 0 and mx_w[1] == mx_renderer.waves
+            and 0 < mx_w[2] < mx_w[1]):
+        raise SystemExit(f"chip_smoke: W1, W2, W3 and shadow-ray launches "
+                         f"{mx_w} for {mx_renderer.waves} waves of the mx "
+                         f"path")
     mx_img = mx_renderer.hdr()
     wf_img = (wf.render_samples_wavefront(big, cd, MAIN_W, MAIN_H, 0, SPP,
                                           max_depth=mx_depth) / SPP)
@@ -1987,7 +2301,7 @@ def main(argv=None) -> int:
           f"{mx_renderer.scene.num_bricks} bricks, "
           f"{mx_rounds / mx_renderer.waves:.1f} rounds per wave and "
           f"{mx_products} products of a packet with a brick in all, no "
-          f"kernel launch; "
+          f"trace kernel launch (W2 {mx_w[1]}, W3 {mx_w[2]}); "
           f"against the wavefront's image at that depth: mismatch share "
           f"{against['mismatch_share']:.3e}, mean abs err "
           f"{against['mean_abs_err']:.3e}; beside the default engine's "
@@ -2248,6 +2562,31 @@ def main(argv=None) -> int:
         **b7_bound,
         "library_ms": None,
     }]
+    # the bounce step (3i): launches on the main path (4b), the shadow rays'
+    # in 3i's NEE render; times on the sorted first-bounce wave of the large
+    # main path.  No one PyTorch call computes any of them.
+    wave_step_source = str(ws.SOURCE.resolve().relative_to(root))
+    jax_wavefront = "pathtracer_cuda_interactive_tpu/ops/wavefront.py"
+    for name, key, replaces, launched, err, w_bound in (
+            ("wave_record", "W1", 249, w1_launches, w_err["record"],
+             w1_bound),
+            ("wave_shade", "W2", 469, w2_launches, w_err["shade"], w2_bound),
+            ("wave_sort_key", "W3", 375, w3_launches, w_err["key"],
+             w3_bound),
+            ("wave_shadow_rays", "shadow", 434, shadow_launches,
+             w_err["shadow_rays"], shadow_bound)):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": wave_step_source,
+            "replaces": f"{jax_wavefront}:{replaces}",
+            "launches": launched,
+            "max_abs_err": err,
+            "ms": w_ms["bounce 1"][key]["ms"],
+            "plain_ms": w_ms["bounce 1"][key]["plain_ms"],
+            **w_bound,
+            "library_ms": None,
+        })
     # launches on the sharded path (4i), in the order of ``counters``
     for entry, n in zip(kernels, sharded["launches"]):
         entry["sharded_launches"] = n

@@ -26,8 +26,10 @@ Prints ONE JSON line on stdout, {"metric", "value", "unit", "vs_baseline",
     triangles) through the sorted wavefront (``slim``, kernel B2) and with
     ``large_scene_mode="bricks"`` (kernel B6): per mode the seconds to
     parse, build and upload, the first synced step, Msamples/s (10 frames,
-    the median of 3 passes) and Mrays/s by the path length at 128x96, and
-    ``bunny_mode``, the faster of the two;
+    the median of 3 passes) and Mrays/s by the path length, the rays a
+    sample that the wavefront traced in its timed frames (the count
+    ``measure_path_stats`` gives: the same paths), and ``bunny_mode``, the
+    faster of the two;
   * buddha — the same scene subdivided four levels (1,310,732 triangles)
     through the wavefront.
 
@@ -96,13 +98,12 @@ class Size:
     large_frames: int
     large_passes: int
     cbox_stats: tuple        # (width, height) of measure_path_stats
-    large_stats: tuple
     bunny_levels: int
     buddha_levels: int
 
 
-FULL = Size(W, H, 50, 30, 5, 10, 4, 10, 3, (160, 120), (128, 96), 3, 4)
-QUICK = Size(32, 24, 4, 2, 2, 2, 2, 2, 1, (32, 24), (32, 24), 0, 1)
+FULL = Size(W, H, 50, 30, 5, 10, 4, 10, 3, (160, 120), 3, 4)
+QUICK = Size(32, 24, 4, 2, 2, 2, 2, 2, 1, (32, 24), 0, 1)
 
 
 def card_line() -> str:
@@ -188,8 +189,8 @@ def cbox_row(size: Size, device) -> tuple:
 
 
 def _large(levels: int, mode: str, size: Size, device):
-    """(pack, camera, renderer, init_s, first_step_s) of blob_box
-    subdivided ``levels`` times, rendered by ``mode``."""
+    """(pack, renderer, init_s, first_step_s) of blob_box subdivided
+    ``levels`` times, rendered by ``mode``."""
     t0 = time.perf_counter()
     parsed = parse_scene(str(BLOB))
     if levels:
@@ -205,17 +206,22 @@ def _large(levels: int, mode: str, size: Size, device):
     t0 = time.perf_counter()
     r.step(sync=True)
     first_s = time.perf_counter() - t0
-    return pack, cam, r, init_s, first_s
+    return pack, r, init_s, first_s
 
 
 def bunny_row(size: Size, device) -> dict:
     out, rates = {}, {}
     for mode in ("wavefront", "bricks"):
-        pack, cam, r, init_s, first_s = _large(size.bunny_levels, mode,
-                                               size, device)
+        pack, r, init_s, first_s = _large(size.bunny_levels, mode, size,
+                                          device)
         if r.mode != mode:
             raise RuntimeError(f"bench row bunny: {mode} took {r.mode}")
+        rays, samples = r.stats.get("rays", 0), r.sample_count
         rates[mode] = throughput(r, size.large_frames, size.large_passes)
+        if mode == "wavefront":
+            # rays a sample over the timed frames, as the wavefront counted
+            plen = ((r.stats["rays"] - rays)
+                    / ((r.sample_count - samples) * r.width * r.height))
         _check_image(r, f"bunny {mode}")
         out.update({f"bunny_{mode}_msamples_s": rates[mode],
                     f"bunny_{mode}_vs_baseline": rates[mode] / BASE_BUNNY,
@@ -225,7 +231,6 @@ def bunny_row(size: Size, device) -> dict:
         del r
     sort_default = inspect.signature(
         render_samples_wavefront).parameters["sort_mode"].default
-    plen = path_length(pack, cam, size.large_stats, device, size.max_depth)
     out.update({"bunny_tris": int(pack.num_triangles),
                 "bunny_mode": max(rates, key=rates.get),
                 "bunny_trace": f"{trace}+{sort_default}",
@@ -235,8 +240,8 @@ def bunny_row(size: Size, device) -> dict:
 
 
 def buddha_row(size: Size, device) -> dict:
-    pack, _, r, init_s, first_s = _large(size.buddha_levels, "wavefront",
-                                         size, device)
+    pack, r, init_s, first_s = _large(size.buddha_levels, "wavefront",
+                                      size, device)
     rate = throughput(r, size.large_frames, size.large_passes)
     _check_image(r, "buddha")
     return {"buddha_surrogate_tris": int(pack.num_triangles),

@@ -18,9 +18,10 @@
 // every bounce of every path, and the divergence of the paths themselves: a
 // sample takes 5.8 rays on average under a depth cap of 50, and after the
 // first bounce a warp's lanes walk unrelated parts of the tree.  Shading is a
-// small share.  The sorted wavefront pays a host dispatch of some 800 small
-// kernels per wave between its traces; this kernel pays none, but its warps
-// stay unsorted.
+// small share.  The sorted wavefront launches some ten kernels a wave and
+// reads the live count on the host between waves; this kernel pays neither,
+// but its warps stay unsorted.  Its bounce (csrc/bounce.cuh) is the
+// wavefront's shading kernel's (csrc/wave_step.cu).
 //
 // What the design does about that:
 //   * The closest hit is csrc/brick_walk.cuh::brick_closest: the resident
@@ -52,6 +53,7 @@
 //   * Arithmetic repeats the plain version op for op (--fmad=false, no fast
 //     math, IEEE sqrtf and division).
 
+#include "bounce.cuh"
 #include "brick_walk.cuh"
 #include "path_shell.cuh"
 
@@ -65,47 +67,6 @@ constexpr int kTileH = 32;
 constexpr int kPatchW = 16;
 constexpr int kPatchH = 8;
 constexpr int kBlocksPerTile = (kTileW / kPatchW) * (kTileH / kPatchH);
-
-// One bounce of a path that hit `rec`: the bounce of csrc/path_shell.cuh
-// (radiance.cuh:21-79) without a direct light.  Updates the path and returns
-// whether it goes on.
-__device__ __forceinline__ bool bounce(const HitRecord& rec, uint32_t& state, V3& org, V3& dir,
-                                       V3& T, V3& L, int depth, int rr_start_depth) {
-  const Material mat = record_to_material(rec);
-  const V3 ns = normalize(rec.ns);
-  const V3 wi = neg(dir);
-  const float cos_view = dot(wi, ns);
-  if (rec.emit > 0.0f && cos_view > 0.0f) L = add(L, mul(T, rec.emission));
-  const V3 n = cos_view < 0.0f ? neg(ns) : ns;
-
-  const float su1 = next_uniform(state);
-  const float su2 = next_uniform(state);
-  const float su3 = next_uniform(state);
-  bool is_spec;
-  V3 weight;
-  const V3 wo = sample_brdf(mat, n, wi, su1, su2, su3, is_spec, weight);
-  V3 contrib;
-  if (is_spec) {
-    if (!(max3(weight) > 0.0f)) return false;
-    contrib = weight;
-  } else {
-    float pdf;
-    const V3 value = eval_brdf(mat, n, wi, wo, pdf);
-    if (!(max3(value) > 0.0f && pdf > 0.0f)) return false;
-    contrib = scale(value, 1.0f / pdf);
-  }
-  T = mul(T, contrib);
-  org = rec.pos;
-  dir = wo;
-
-  const float ru = next_uniform(state);
-  if (depth > rr_start_depth) {
-    const float p = fmaxf(0.5f, 1.0f - max3(T));
-    if (ru < p) return false;
-    if (p < 1.0f) T = scale(T, 1.0f / (1.0f - p));
-  }
-  return true;
-}
 
 // Radiance sum of passes sample_start .. sample_start + n_pass - 1 of pixel
 // pix = (fi, fj); a lane with has_pixel = false renders nothing.  All 32

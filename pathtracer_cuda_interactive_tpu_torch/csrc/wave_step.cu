@@ -1,0 +1,343 @@
+// The wavefront's bounce step for Hopper (sm_90a): the device code around
+// each wave's trace, one thread per ray.
+//
+// The JAX package runs its wave loop as one jit program
+// (pathtracer_cuda_interactive_tpu/ops/wavefront.py::_render_wavefront), and
+// XLA fuses what surrounds the Pallas trace into a few device kernels.  These
+// kernels are that code, written by hand; their plain versions are the torch
+// functions of ops/wave_step.py:
+//
+// * wave_record (W1) replaces _record_from_slots (:249): per ray the winning
+//   triangle's 32-float record by slot (slot 0's on a miss), the
+//   Moller-Trumbore re-solve of (u, v), the triangle's record, then the S
+//   resident spheres folded in by a strict ts < t, as the 16-channel record
+//   [16, n].  Plain version: ops/wave_step.py::record_plain.
+// * wave_shadow_rays (W2's first half, with point lights only) replaces the
+//   light directions of _nee_term (:434): per ray and light the unit
+//   direction from the hit to the light, [L, 3, n], the shadow rays the trace
+//   engine takes.  Plain version: shadow_rays_plain.
+// * wave_shade (W2) replaces _nee_term's sum and _shade (:469) and the
+//   segment_sum's input: with lights, the shadow waves' t with the spheres
+//   folded in and the point-light term; the background on a miss, front-face
+//   emission, three BSDF draws, sample and evaluate, the throughput, one
+//   roulette draw and roulette past rr_start_depth, the depth cap; then the
+//   radiance of every ray whose path ended written to its own place
+//   out[samp, pix] (one address per ray: no atomics, and the image's sum over
+//   samples stays deterministic).  It writes the shaded rays to a new ray
+//   table, so the wave's own rows stay as the trace saw them.  Plain version:
+//   shade_plain.
+// * wave_sort_key (W3) replaces _sort_key (:354) and _sig_key (:375): the
+//   int32 "mort_oct" or "sig_mort" key, or 0 for "none", and INT32_MAX for a
+//   ray that is no longer live, so that one stable sort orders the next wave
+//   and sinks the ended rays to the tail.  Plain version: sort_key_plain.
+//
+// The ray table (ops/wave_step.py) is float32 [16, n], one contiguous row a
+// column: origin (3), direction (3), throughput (3), radiance (3), the PCG
+// state, pixel and sample as int32 bits, and the live flag (1 or 0).
+//
+// What bounds them on the card: bytes.  Each reads and writes a few rows of
+// 4 bytes per ray and does a few hundred operations at most (W3's "sig_mort"
+// tests 16 boxes); at the 614,400 rays of a 640x480, 2-sample wave W1 and W2
+// move about 100 and 130 bytes a ray.  What the design does about it: one
+// thread a ray, coalesced row reads and writes (ray i at offset i of every
+// row), the sphere table and lights read through the cache as broadcasts, and
+// each kernel in one launch for the whole wave.  W1's gather of the winner's
+// 128-byte record is the one scattered read.  Arithmetic repeats the plain
+// version op for op (--fmad=false, no fast math, IEEE sqrtf and division).
+
+#include <cstdint>
+
+#include "bounce.cuh"
+#include "brick_walk.cuh"
+
+namespace {
+
+using namespace pt;
+
+constexpr int kBlock = 256;   // threads per block
+constexpr int kRecord = 16;   // channels of the hit record
+
+// rows of the ray table (ops/wave_step.py)
+constexpr int kOrg = 0, kDir = 3, kThroughput = 6, kRadiance = 9, kState = 12, kPix = 13,
+              kSamp = 14, kLive = 15;
+
+// what _nee_term multiplies the light's distance by before it compares it
+// with the shadow ray's t: the float32 nearest 1 - 1e-3
+constexpr float kShadowScale = (float)(1.0 - 1e-3);
+
+// sort keys (ops/wave_step.py::SORT_MODES)
+constexpr int kSigMort = 0, kMortOct = 1, kNone = 2;
+
+__device__ __forceinline__ V3 row3(const float* rows, size_t n, int r, int i) {
+  return {rows[r * n + i], rows[(r + 1) * n + i], rows[(r + 2) * n + i]};
+}
+
+__device__ __forceinline__ void put3(float* rows, size_t n, int r, int i, V3 v) {
+  rows[r * n + i] = v.x;
+  rows[(r + 1) * n + i] = v.y;
+  rows[(r + 2) * n + i] = v.z;
+}
+
+__device__ __forceinline__ HitRecord load_record(const float* rec, size_t n, int i) {
+  HitRecord h;
+  h.t = rec[i];
+  h.ns = row3(rec, n, 1, i);
+  h.pos = row3(rec, n, 4, i);
+  h.mtype = rec[7 * n + i];
+  h.albedo = row3(rec, n, 8, i);
+  h.mparam = rec[11 * n + i];
+  h.emission = row3(rec, n, 12, i);
+  h.emit = rec[15 * n + i];
+  return h;
+}
+
+// _nee_term's light direction: the unit vector from pos to the light, with
+// the squared distance and the distance
+__device__ __forceinline__ V3 light_dir(const float* light, V3 pos, float& dist2, float& dist) {
+  const V3 d = {light[0] - pos.x, light[1] - pos.y, light[2] - pos.z};
+  dist2 = dot(d, d);
+  dist = sqrtf(dist2);
+  return scale(d, 1.0f / fmaxf(dist, 1e-20f));
+}
+
+__global__ void __launch_bounds__(kBlock)
+wave_record(const float* __restrict__ ox, const float* __restrict__ oy,
+            const float* __restrict__ oz, const float* __restrict__ dx,
+            const float* __restrict__ dy, const float* __restrict__ dz,
+            const float* __restrict__ t_in, const int* __restrict__ slot_in, int n, float tnear,
+            const float* __restrict__ brick_data, const float* __restrict__ sph_rows, int S,
+            float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const V3 org = {ox[i], oy[i], oz[i]};
+  const V3 dir = {dx[i], dy[i], dz[i]};
+  const int slot = slot_in[i];
+  const float* r = slot_row(brick_data, slot > 0 ? slot : 0);
+  // _solve_uv: one Moller-Trumbore solve, 0 / 1 where the ray is parallel
+  const V3 p0 = load3(r + 1);
+  const V3 e1 = load3(r + 4);
+  const V3 e2 = load3(r + 7);
+  const V3 pv = cross(dir, e2);
+  const float det = dot(e1, pv);
+  const float det_s = det == 0.0f ? 1.0f : det;
+  const V3 tvec = sub(org, p0);
+  const float u = dot(tvec, pv) / det_s;
+  const V3 qv = cross(tvec, e1);
+  const float v = dot(dir, qv) / det_s;
+  HitRecord h = triangle_record(r, slot >= 0 ? t_in[i] : INFINITY, u, v);
+  for (int j = 0; j < S; ++j) {
+    const float* sr = sph_rows + (size_t)j * kRow;
+    float ts;
+    if (sphere_test(load3(sr + 1), sr[4], org, dir, tnear, h.t, ts) && ts < h.t) {
+      h = sphere_record(sr, org, dir, ts);
+    }
+  }
+  const float ch[kRecord] = {h.t,        h.ns.x,     h.ns.y,     h.ns.z,
+                             h.pos.x,    h.pos.y,    h.pos.z,    h.mtype,
+                             h.albedo.x, h.albedo.y, h.albedo.z, h.mparam,
+                             h.emission.x, h.emission.y, h.emission.z, h.emit};
+#pragma unroll
+  for (int c = 0; c < kRecord; ++c) out[(size_t)c * n + i] = ch[c];
+}
+
+__global__ void __launch_bounds__(kBlock)
+wave_shadow_rays(const float* __restrict__ rec, int n, const float* __restrict__ lights,
+                 int num_lights, float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const V3 pos = row3(rec, n, 4, i);
+  for (int l = 0; l < num_lights; ++l) {
+    float dist2, dist;
+    put3(out, n, 3 * l, i, light_dir(lights + 6 * l, pos, dist2, dist));
+  }
+}
+
+__global__ void __launch_bounds__(kBlock)
+wave_shade(const float* __restrict__ table, float* __restrict__ next,
+           const float* __restrict__ rec, int n,
+           const float* __restrict__ shadow_t, const float* __restrict__ lights, int num_lights,
+           const float* __restrict__ sph_rows, int S, const float* __restrict__ bg, int depth,
+           int rr_start_depth, int max_depth, float* __restrict__ out, int num_pixels) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  V3 org = row3(table, n, kOrg, i);
+  V3 dir = row3(table, n, kDir, i);
+  V3 T = row3(table, n, kThroughput, i);
+  V3 L = row3(table, n, kRadiance, i);
+  uint32_t state = __float_as_uint(table[kState * (size_t)n + i]);
+  const HitRecord h = load_record(rec, n, i);
+
+  if (num_lights > 0) {
+    // _nee_term: the lights' sum, added to L before the bounce
+    V3 direct = {0.0f, 0.0f, 0.0f};
+    if (h.t < INFINITY) {
+      const Material mat = record_to_material(h);
+      const V3 ns = normalize(h.ns);
+      const V3 wi = neg(dir);
+      const V3 nf = dot(wi, ns) < 0.0f ? neg(ns) : ns;
+      for (int l = 0; l < num_lights; ++l) {
+        const float* light = lights + 6 * l;
+        float dist2, dist;
+        const V3 wo = light_dir(light, h.pos, dist2, dist);
+        float pdf;
+        const V3 value = eval_brdf(mat, nf, wi, wo, pdf);
+        // _sphere_tmin: the resident spheres folded into the shadow wave's t
+        float ts = shadow_t[(size_t)l * n + i];
+        for (int j = 0; j < S; ++j) {
+          const float* sr = sph_rows + (size_t)j * kRow;
+          float tj;
+          if (sphere_test(load3(sr + 1), sr[4], h.pos, wo, kSecondaryTnear, ts, tj) && tj < ts) {
+            ts = tj;
+          }
+        }
+        if (!(ts < dist * kShadowScale)) {
+          direct = add(direct, scale(mul(mul(T, value), load3(light + 3)),
+                                     1.0f / fmaxf(dist2, 1e-20f)));
+        }
+      }
+    }
+    L = add(L, direct);
+  }
+
+  bool live;
+  if (h.t == INFINITY) {
+    L = add(L, mul(T, load3(bg)));
+    // _shade draws four uniforms for every ray of the wave
+    for (int k = 0; k < 4; ++k) next_uniform(state);
+    live = false;
+  } else {
+    live = bounce(h, state, org, dir, T, L, depth, rr_start_depth) && depth + 1 < max_depth;
+  }
+
+  const float pix_bits = table[kPix * (size_t)n + i];
+  const float samp_bits = table[kSamp * (size_t)n + i];
+  put3(next, n, kOrg, i, org);
+  put3(next, n, kDir, i, dir);
+  put3(next, n, kThroughput, i, T);
+  put3(next, n, kRadiance, i, L);
+  next[kState * (size_t)n + i] = __uint_as_float(state);
+  next[kPix * (size_t)n + i] = pix_bits;
+  next[kSamp * (size_t)n + i] = samp_bits;
+  next[kLive * (size_t)n + i] = live ? 1.0f : 0.0f;
+  if (!live) {
+    const int pix = __float_as_int(pix_bits);
+    const int samp = __float_as_int(samp_bits);
+    float* o = out + ((size_t)samp * num_pixels + pix) * 3;
+    o[0] = L.x;
+    o[1] = L.y;
+    o[2] = L.z;
+  }
+}
+
+// ops/wave_step.py::_spread3: the low 10 bits of x, two zero bits after each
+__device__ __forceinline__ int spread3(int x) {
+  x &= 0x3FF;
+  x = (x | (x << 16)) & 0x030000FF;
+  x = (x | (x << 8)) & 0x0300F00F;
+  x = (x | (x << 4)) & 0x030C30C3;
+  x = (x | (x << 2)) & 0x09249249;
+  return x;
+}
+
+// ops/wave_step.py::_morton: the origin's Morton code at `top` + 1 cells an
+// axis of the scene box
+__device__ __forceinline__ int morton(V3 o, const float* lo, const float* inv, float top) {
+  const float q[3] = {(o.x - lo[0]) * inv[0] * top, (o.y - lo[1]) * inv[1] * top,
+                      (o.z - lo[2]) * inv[2] * top};
+  int m[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) m[a] = spread3((int)nan_min(nan_max(q[a], 0.0f), top));
+  return (m[0] << 2) | (m[1] << 1) | m[2];
+}
+
+__global__ void __launch_bounds__(kBlock)
+wave_sort_key(const float* __restrict__ ox, const float* __restrict__ oy,
+              const float* __restrict__ oz, const float* __restrict__ dx,
+              const float* __restrict__ dy, const float* __restrict__ dz,
+              const float* __restrict__ live, int n, int mode, const float* __restrict__ lo,
+              const float* __restrict__ inv_extent, const float* __restrict__ coarse, int K,
+              int* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  int key;
+  if (!(live[i] > 0.0f)) {
+    key = INT32_MAX;
+  } else if (mode == kNone) {
+    key = 0;
+  } else if (mode == kMortOct) {
+    const int octant = (dx[i] > 0.0f) * 4 + (dy[i] > 0.0f) * 2 + (dz[i] > 0.0f);
+    key = (morton({ox[i], oy[i], oz[i]}, lo, inv_extent, 127.0f) << 3) | octant;
+  } else {  // kSigMort
+    const V3 o = {ox[i], oy[i], oz[i]};
+    const V3 inv = {1.0f / dx[i], 1.0f / dy[i], 1.0f / dz[i]};
+    int sig = 0;
+    for (int k = 0; k < K; ++k) {
+      const float* c = coarse + 8 * k;
+      float tn, tf;
+      slab_interval(load3(c), load3(c + 3), o, inv, tn, tf);
+      if (tf >= nan_max(tn, 0.0f) && c[6] > 0.0f) sig |= 1 << k;
+    }
+    const int mb = min(7, (30 - K) / 3);
+    key = (sig << (3 * mb)) | morton(o, lo, inv_extent, (float)((1 << mb) - 1));
+  }
+  out[i] = key;
+}
+
+int blocks(int n) { return (n + kBlock - 1) / kBlock; }
+
+}  // namespace
+
+// Each launch function runs its kernel on `stream` and returns
+// cudaGetLastError() (0 on success); an empty wave launches nothing.  The
+// caller checks shapes, types and devices (ops/wave_step.py).
+
+// W1: `brick_data` the set's [B, 136, 128] bricks, `sph_rows` its [S, 32]
+// resident spheres; out [16, n].
+extern "C" int pt_wave_record_launch(const float* ox, const float* oy, const float* oz,
+                                     const float* dx, const float* dy, const float* dz,
+                                     const float* t, const int* slot, int n, float tnear,
+                                     const float* brick_data, const float* sph_rows,
+                                     int num_spheres, float* out, void* stream) {
+  if (n <= 0) return 0;
+  wave_record<<<blocks(n), kBlock, 0, (cudaStream_t)stream>>>(
+      ox, oy, oz, dx, dy, dz, t, slot, n, tnear, brick_data, sph_rows, num_spheres, out);
+  return (int)cudaGetLastError();
+}
+
+// W2's first half: `rec` [16, n], `lights` [L, 6] (position, intensity);
+// out [L, 3, n].
+extern "C" int pt_wave_shadow_rays_launch(const float* rec, int n, const float* lights,
+                                          int num_lights, float* out, void* stream) {
+  if (n <= 0) return 0;
+  wave_shadow_rays<<<blocks(n), kBlock, 0, (cudaStream_t)stream>>>(rec, n, lights, num_lights,
+                                                                   out);
+  return (int)cudaGetLastError();
+}
+
+// W2: `table` [16, n] in, `next` [16, n] out, `rec` [16, n], `shadow_t`
+// [L, n] (null without lights), `bg` [3], out [num_samples, num_pixels, 3].
+extern "C" int pt_wave_shade_launch(const float* table, float* next, const float* rec, int n,
+                                    const float* shadow_t,
+                                    const float* lights, int num_lights, const float* sph_rows,
+                                    int num_spheres, const float* bg, int depth,
+                                    int rr_start_depth, int max_depth, float* out,
+                                    int num_pixels, void* stream) {
+  if (n <= 0) return 0;
+  wave_shade<<<blocks(n), kBlock, 0, (cudaStream_t)stream>>>(
+      table, next, rec, n, shadow_t, lights, num_lights, sph_rows, num_spheres, bg, depth,
+      rr_start_depth, max_depth, out, num_pixels);
+  return (int)cudaGetLastError();
+}
+
+// W3: `live` [n] (1 or 0), `lo` and `inv_extent` [3], `coarse` [K, 8] (read
+// for "sig_mort" only); out [n].
+extern "C" int pt_wave_sort_key_launch(const float* ox, const float* oy, const float* oz,
+                                       const float* dx, const float* dy, const float* dz,
+                                       const float* live, int n, int mode, const float* lo,
+                                       const float* inv_extent, const float* coarse, int K,
+                                       int* out, void* stream) {
+  if (n <= 0) return 0;
+  wave_sort_key<<<blocks(n), kBlock, 0, (cudaStream_t)stream>>>(
+      ox, oy, oz, dx, dy, dz, live, n, mode, lo, inv_extent, coarse, K, out);
+  return (int)cudaGetLastError();
+}

@@ -17,7 +17,7 @@ packet is 128 consecutive rays of a wave.  Per wave:
    when no ray's best t lies beyond the next superbrick's entry bound.
 3. the record: one gather of the winning slot's 32-float row, (u, v) by one
    Moller-Trumbore solve, the resident spheres folded in with a strict
-   ``ts < t`` (ops/wavefront.py::_record_from_rows), which is the
+   ``ts < t`` (ops/wave_step.py::_record_from_rows), which is the
    wavefront's record; the wave loop is the wavefront's (``render_waves``).
 
 What differs from the JAX package.  Its waves are fixed [M, 128] tables
@@ -46,8 +46,8 @@ from ..ops import cuda_build
 from ..ops.integrator import MAX_DEPTH, RR_START_DEPTH
 from ..ops.pairtrace import LANES, visit_lists
 from ..ops.vec import Vec3
-from ..ops.wavefront import (MAX_RAYS_PER_WAVE, _record_from_rows, _solve_uv,
-                             render_waves)
+from ..ops.wave_step import _record_from_rows, _solve_uv
+from ..ops.wavefront import MAX_RAYS_PER_WAVE, render_waves
 from .mx2set import MX2Set, NUM_SUBS, SB_PRIMS, SLAB_ROWS, SUB_PRIMS
 
 INF = float("inf")

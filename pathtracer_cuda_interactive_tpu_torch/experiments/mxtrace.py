@@ -27,7 +27,7 @@ brick; the result is the same.
 
 Attributes are fetched once per wave by a gather of the winning slot's
 32-float row, and the resident spheres are folded in
-(ops/wavefront.py::_record_from_rows), which gives the 16-channel record of
+(ops/wave_step.py::_record_from_rows), which gives the 16-channel record of
 the wavefront; the wave loop is the wavefront's own (``render_waves``).
 """
 
@@ -40,7 +40,8 @@ import torch
 from ..ops.integrator import MAX_DEPTH, RR_START_DEPTH
 from ..ops.pairtrace import LANES, visit_lists
 from ..ops.vec import Vec3
-from ..ops.wavefront import _record_from_rows, render_waves
+from ..ops.wave_step import _record_from_rows
+from ..ops.wavefront import render_waves
 from .mxset import MXSet
 
 INF = float("inf")

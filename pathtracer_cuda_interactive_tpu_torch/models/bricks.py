@@ -55,7 +55,7 @@ BRICK_ROWS = BRICK_DATA_ROWS + 8             # [136, 128] per-brick block
 # walk needs at most tree_depth + 1 live slots
 STACK_DEPTH = 192
 # coarse boxes for the target-signature sort key (one bit per box in the
-# key's high bits; ops/wavefront.py::_sig_key)
+# key's high bits; ops/wave_step.py::_sig_key)
 SIG_BOXES = 16
 # the JAX package's resident top-tree budget (TPU SMEM), kept so that both
 # packages accept the same scenes
@@ -166,7 +166,7 @@ class BrickSet:
     # 6 = non-empty flag
     sub_boxes: torch.Tensor
     # up to SIG_BOXES coarse top-tree node AABBs, preorder, for the per-ray
-    # target-signature sort key (ops/wavefront.py::_sig_key): [K, 8] f32,
+    # target-signature sort key (ops/wave_step.py::_sig_key): [K, 8] f32,
     # fields 0..5 = min/max xyz, 6 = valid flag
     coarse_boxes: torch.Tensor
     # resident sphere table, megakernel row layout

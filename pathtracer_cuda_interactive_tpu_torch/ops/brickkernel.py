@@ -24,7 +24,7 @@ and this module holds their plain versions in torch:
 * ``render_tiles_bricks_plain`` — kernel B6, the persistent render of whole
   sample passes over a range of 64x32 screen tiles: the path loop of
   ops/integrator.py over the tiles' pixels, each bounce the full-record
-  walk and then the wavefront's bounce (ops/wavefront.py::_shade), with no
+  walk and then the wavefront's bounce (ops/wave_step.py::_shade), with no
   sort and no compaction of the path state.
 
 They are the CPU paths (ops/wavefront.py sends CPU waves to the first
@@ -482,8 +482,8 @@ def _path_sums(bricks: BrickSet, cam_data, pix, width: int, height: int,
     """Radiance sums [m, 3] of passes sample_start .. + n_pass of pixels
     ``pix`` [m]: the integrator's path loop over every pixel, each bounce
     the full-record walk and the wavefront's bounce."""
-    # ops/wavefront.py imports this module for its traces
-    from .wavefront import _shade
+    # ops/wave_step.py imports this module for its record
+    from .wave_step import _shade
     dev = cam_data.device
     m = int(pix.numel())
     i = (pix % width).to(torch.float32)

@@ -6,26 +6,27 @@ are synchronous WAVES over all rays of a frame:
   wave 0   camera rays, ordered by compact screen tiles (``_wave_layout``);
   wave b   the live rays sorted by a coherence key (default "sig_mort": a
            16-bit target signature of which coarse scene regions the ray's
-           line can touch, ``_sig_key``, above an origin Morton code), so
-           that neighbouring rays walk the same part of the tree;
+           line can touch, above an origin Morton code), so that
+           neighbouring rays walk the same part of the tree;
   each     one closest-triangle trace by the chosen engine (``parse_engine``;
-           kernel B2, ``trace_wave_slim``, unless asked otherwise), the
-           winner's record gathered and the resident spheres folded in
-           (``_record_from_slots``), optional point-light NEE with shadow
-           waves (``_nee_term``), and one bounce of shading, BSDF sampling
-           and Russian roulette (``_shade``) in torch ops (ops/brdf.py, the
-           same code the plain integrator uses).
+           kernel B2, ``trace_wave_slim``, unless asked otherwise), then the
+           bounce step of ops/wave_step.py: the winner's record with the
+           resident spheres folded in (kernel W1), optional point-light NEE
+           with shadow waves, and one bounce of shading, BSDF sampling and
+           Russian roulette (kernel W2), then the next wave's key (W3).
 
-Where the JAX package keeps a static [rows, 128] ray table with an active
-mask, a ``lax.while_loop`` and a compaction ladder, this loop drops the
-dead rays from the table after every wave, stable-sorts the live ones by
-their key and stops when none is live or the depth cap is reached: the same
-rays reach the same depths with the same RNG streams (2 camera jitter
-draws, then 3 BSDF draws and 1 RR draw per bounce, as in
-ops/integrator.py).  A ray's radiance is written when it dies, into a
-[num_samples, H*W, 3] buffer at its (sample, pixel), which is unique per
-ray, and the image is that buffer's sum over samples: no float atomics, so
-renders are bit-reproducible on the card.
+A wave's rays are one ray table, [16, N] (ops/wave_step.py).  Where the JAX
+package keeps a static [rows, 128] table with an active mask, a
+``lax.while_loop`` and a compaction ladder, this loop keeps only the live
+rays: the key of a ray whose path ended is INT32_MAX, so one stable sort
+orders the next wave and sinks the ended rays to the tail, as the JAX
+package's sort does, and one gather keeps the live prefix, whose length is
+the one host read a wave.  The same rays reach the same depths with the
+same RNG streams (2 camera jitter draws, then 3 BSDF draws and 1 RR draw
+per bounce, as in ops/integrator.py).  A ray's radiance is written when it
+dies, into a [num_samples, H*W, 3] buffer at its (sample, pixel), which is
+unique per ray, and the image is that buffer's sum over samples: no float
+atomics, so renders are bit-reproducible on the card.
 
 ``trace_wave_slim`` dispatches on the device of the rays: CUDA tensors
 launch the hand-written kernel (``trace_bricks_cuda``, csrc/brick_trace.cu)
@@ -37,7 +38,8 @@ same for kernel B4, the walk with the deferred leaf
 kernel B5, and ``trace_wave_full`` for kernel B3 (``trace_bricks_full_cuda``,
 B2's source), the 16-channel record with optional per-ray traversal
 counters, which the JAX package's tools and the port's
-render/kernel_stats.py call.
+render/kernel_stats.py call.  The bounce step's kernels dispatch the same
+way.
 """
 
 from __future__ import annotations
@@ -52,26 +54,24 @@ import torch
 from torch.profiler import record_function
 
 from ..models.bricks import BRICK_ROWS, STACK_DEPTH, BrickSet
-from . import brdf, cuda_build, rng
-from .brickkernel import (slot_rows, tile_grid, trace_bricks_full_plain,
+from . import cuda_build, rng, wave_step
+from .brickkernel import (tile_grid, trace_bricks_full_plain,
                           trace_bricks_pipelined_plain, trace_bricks_plain,
-                          triangle_record, walk_pointers)
+                          walk_pointers)
 from .camera import generate_primary_rays
-from .geometry import intersect_sphere
 from .integrator import MAX_DEPTH, RR_START_DEPTH, SECONDARY_TNEAR
 from .pairtrace import PACKET_ROWS, trace_wave_pairs
-from .vec import Vec3, cross, dot, max_elem, normalize, where
+from .vec import Vec3
+from .wave_step import INF, SORT_MODES, STEPS, WaveSteps
 
 LANES = 128
 # rays per [WAVE_ROWS, 128] packet of the JAX package's layout; the primary
 # wave keeps its screen-tile order (one TILE per packet)
 WAVE_ROWS = 16
 TILE = (64, WAVE_ROWS * LANES // 64)
-INF = float("inf")
 # Cap on rays per wave; sample batches beyond it render in chunks of whole
 # samples, as in the JAX package.
 MAX_RAYS_PER_WAVE = 1 << 21
-SORT_MODES = ("sig_mort", "mort_oct", "none")
 
 SOURCE = cuda_build.CSRC_DIR / "brick_trace.cu"
 SLIM2_SOURCE = cuda_build.CSRC_DIR / "brick_trace_slim2.cu"
@@ -369,7 +369,7 @@ def trace_wave_full(bricks: BrickSet, org: Vec3, dirn: Vec3, tnear: float,
     return (record, counts) if collect_stats else record
 
 
-# -- ray layout and sort keys --------------------------------------------------
+# -- the primary wave's layout ---------------------------------------------------
 
 def _wave_layout(width: int, height: int):
     """Static slot -> pixel map: each [WAVE_ROWS, 128] packet covers one
@@ -388,233 +388,6 @@ def _wave_layout(width: int, height: int):
     return pix.reshape(-1).astype(np.int32), n_blocks
 
 
-def _spread3(x):
-    """Interleave the low 10 bits of int32 x with two zero bits each."""
-    x = x & 0x3FF
-    x = (x | (x << 16)) & 0x030000FF
-    x = (x | (x << 8)) & 0x0300F00F
-    x = (x | (x << 4)) & 0x030C30C3
-    x = (x | (x << 2)) & 0x09249249
-    return x
-
-
-def _octant(dirn: Vec3):
-    i32 = torch.int32
-    return ((dirn.x > 0).to(i32) * 4 + (dirn.y > 0).to(i32) * 2
-            + (dirn.z > 0).to(i32))
-
-
-def _morton(org: Vec3, lo, inv_extent, top: float):
-    def q(c, l, s):
-        return torch.clamp((c - l) * s * top, 0.0, top).to(torch.int32)
-
-    mx = _spread3(q(org.x, lo[0], inv_extent[0]))
-    my = _spread3(q(org.y, lo[1], inv_extent[1]))
-    mz = _spread3(q(org.z, lo[2], inv_extent[2]))
-    return (mx << 2) | (my << 1) | mz
-
-
-def _sort_key(org: Vec3, dirn: Vec3, lo, inv_extent):
-    """"mort_oct": 21-bit Morton code of the origin (scene-box normalized)
-    above the direction octant.  Every ray of the table is live, so there
-    is no dead-ray sentinel."""
-    return (_morton(org, lo, inv_extent, 127.0) << 3) | _octant(dirn)
-
-
-def _sig_key(org: Vec3, dirn: Vec3, lo, inv_extent, coarse):
-    """"sig_mort": the high K = len(coarse) bits say which coarse scene
-    regions (models/bricks.py::_coarse_cut) the ray's forward line can
-    touch, the low 3 * mb bits (mb = min(7, (30 - K) // 3)) are the origin
-    Morton code.  Every ray of the table is live, so there is no dead-ray
-    sentinel."""
-    inv = Vec3(1.0 / dirn.x, 1.0 / dirn.y, 1.0 / dirn.z)
-    col = lambda v: v.reshape(-1)[:, None]
-    o = Vec3(col(org.x), col(org.y), col(org.z))
-    iv = Vec3(col(inv.x), col(inv.y), col(inv.z))
-    # all K boxes at once, [N, K]; same elementwise arithmetic as the JAX
-    # per-box loop
-    tx0 = (coarse[:, 0] - o.x) * iv.x
-    tx1 = (coarse[:, 3] - o.x) * iv.x
-    ty0 = (coarse[:, 1] - o.y) * iv.y
-    ty1 = (coarse[:, 4] - o.y) * iv.y
-    tz0 = (coarse[:, 2] - o.z) * iv.z
-    tz1 = (coarse[:, 5] - o.z) * iv.z
-    tn = torch.maximum(torch.maximum(torch.minimum(tx0, tx1),
-                                     torch.minimum(ty0, ty1)),
-                       torch.minimum(tz0, tz1))
-    tf = torch.minimum(torch.minimum(torch.maximum(tx0, tx1),
-                                     torch.maximum(ty0, ty1)),
-                       torch.maximum(tz0, tz1))
-    hit = (tf >= torch.maximum(tn, torch.zeros_like(tn))) & (coarse[:, 6] > 0.0)
-    K = int(coarse.shape[0])
-    bits = torch.tensor([1 << k for k in range(K)], dtype=torch.int32,
-                        device=tn.device)
-    sig = (hit.to(torch.int32) * bits).sum(dim=1, dtype=torch.int32)
-    sig = sig.reshape(org.x.shape)
-
-    # Morton bits shrink as the signature widens so the key stays in int32
-    mb = min(7, (30 - K) // 3)
-    return (sig << (3 * mb)) | _morton(org, lo, inv_extent, float(2 ** mb - 1))
-
-
-# -- the epilogue and the bounce ----------------------------------------------
-
-def _sphere_tmin(sph_rows, S: int, org: Vec3, dirn: Vec3, tnear: float, t):
-    """Fold the resident sphere table into a best t (shadow rays)."""
-    for j in range(S):
-        c = Vec3(sph_rows[j, 1], sph_rows[j, 2], sph_rows[j, 3])
-        ts, hit = intersect_sphere(c, sph_rows[j, 4], org, dirn, tnear, t)
-        t = torch.where(hit & (ts < t), ts, t)
-    return t
-
-
-def _solve_uv(rows, org: Vec3, dirn: Vec3):
-    """Barycentric (u, v) of each ray on the triangle of its 32-float record
-    ``rows`` [m, 32]: one Moller-Trumbore solve (0 / 1 where the ray is
-    parallel to the triangle)."""
-    gv = lambda j: Vec3(rows[:, j], rows[:, j + 1], rows[:, j + 2])
-    p0, e1, e2 = gv(1), gv(4), gv(7)
-    pv = cross(dirn, e2)
-    det = dot(e1, pv)
-    det_s = torch.where(det == 0.0, 1.0, det)
-    tvec = org - p0
-    u = dot(tvec, pv) / det_s
-    qv = cross(tvec, e1)
-    v = dot(dirn, qv) / det_s
-    return u, v
-
-
-def _record_from_rows(rows, u, v, t, slot, sph, S: int, org: Vec3,
-                      dirn: Vec3, tnear: float):
-    """The 16-channel hit record of a wave from each ray's winning triangle
-    (its record ``rows`` [m, 32], barycentrics, t and slot, -1 = miss), with
-    the ``S`` resident spheres of table ``sph`` folded in after the
-    triangles by a strict ``ts < t``, so a triangle wins an equal-t tie.
-    Every ray of the table is live, so there is no active mask."""
-    ns, pos, mt, alb, mp, em, emit = triangle_record(rows, u, v)
-    t = torch.where(slot >= 0, t, INF)
-
-    for j in range(S):
-        c = Vec3(sph[j, 1], sph[j, 2], sph[j, 3])
-        ts, hit = intersect_sphere(c, sph[j, 4], org, dirn, tnear, t)
-        closer = hit & (ts < t)
-        spos = Vec3(org.x + dirn.x * ts, org.y + dirn.y * ts,
-                    org.z + dirn.z * ts)
-        sns = Vec3(spos.x - c.x, spos.y - c.y, spos.z - c.z)
-        t = torch.where(closer, ts, t)
-        pos = where(closer, spos, pos)
-        ns = where(closer, sns, ns)
-        mt = torch.where(closer, sph[j, 19], mt)
-        mp = torch.where(closer, sph[j, 23], mp)
-        alb = where(closer, Vec3(sph[j, 20], sph[j, 21], sph[j, 22]), alb)
-        em = where(closer, Vec3(sph[j, 24], sph[j, 25], sph[j, 26]), em)
-        emit = torch.where(closer, sph[j, 27], emit)
-    return (t, ns.x, ns.y, ns.z, pos.x, pos.y, pos.z, mt,
-            alb.x, alb.y, alb.z, mp, em.x, em.y, em.z, emit)
-
-
-def _record_from_slots(bricks: BrickSet, t, slot, org: Vec3, dirn: Vec3,
-                       tnear: float):
-    """The 16-channel hit record of the JAX package's full trace kernel from
-    B2's (t, slot): one 32-float gather per ray of the winning triangle's
-    record, a Moller-Trumbore re-solve for (u, v), then the resident
-    spheres."""
-    rows = slot_rows(bricks, slot)
-    u, v = _solve_uv(rows, org, dirn)
-    return _record_from_rows(rows, u, v, t, slot, bricks.sph_rows,
-                             bricks.num_spheres, org, dirn, tnear)
-
-
-def _material(rec) -> brdf.MatLookup:
-    mt, ar, ag, ab, mp = rec[7], rec[8], rec[9], rec[10], rec[11]
-    return brdf.MatLookup(mtype=mt.to(torch.int32), color=Vec3(ar, ag, ab),
-                          param=mp)
-
-
-def _nee_term(rec, dirn: Vec3, T: Vec3, light_rows, shadow_t) -> Vec3:
-    """Point-light next-event estimation for one wave: the direct light to
-    add at each hit (ops/integrator.py::_direct_point_lights semantics; no
-    RNG draws).  ``shadow_t(org, wo, mask) -> t`` traces a shadow wave of
-    the masked rays and returns the closest-hit distance (inf = clear)."""
-    t, nsx, nsy, nsz, px, py, pz = rec[:7]
-    zero = Vec3.zeros(t.shape, device=t.device)
-    hit = t < INF
-    ns = normalize(Vec3(nsx, nsy, nsz))
-    wi = -dirn
-    cos_view = dot(wi, ns)
-    n = where(cos_view < 0.0, -ns, ns)
-    mat = _material(rec)
-    pos = Vec3(px, py, pz)
-    out = zero
-    for l in range(int(light_rows.shape[0])):
-        d = Vec3(light_rows[l, 0] - pos.x, light_rows[l, 1] - pos.y,
-                 light_rows[l, 2] - pos.z)
-        dist2 = dot(d, d)
-        dist = torch.sqrt(dist2)
-        wo = d * (1.0 / torch.clamp_min(dist, 1e-20))
-        ev_value, _ = brdf.eval_brdf(mat, n, wi, wo)
-        ts = shadow_t(pos, wo, hit)
-        occ = ts < dist * (1.0 - 1e-3)
-        inten = Vec3(light_rows[l, 3], light_rows[l, 4], light_rows[l, 5])
-        contrib = T * ev_value * inten * (1.0 / torch.clamp_min(dist2, 1e-20))
-        out = out + where(hit & ~occ, contrib, zero)
-    return out
-
-
-def _shade(rec, org: Vec3, dirn: Vec3, T: Vec3, L: Vec3, state, depth: int,
-           bg: Vec3, rr_start_depth: int, max_depth: int):
-    """One bounce of the radiance.cuh:21-79 state machine for every ray of
-    the table, given its hit record.  Returns (org, dirn, T, L, active,
-    state); ``active`` False marks rays whose path ended."""
-    (t, nsx, nsy, nsz, px, py, pz, _mt, _ar, _ag, _ab, _mp,
-     er, eg, eb, em) = rec
-    zero = Vec3.zeros(t.shape, device=t.device)
-    miss = t == INF
-    L = L + where(miss, T * bg, zero)
-    active = ~miss
-
-    ns = normalize(Vec3(nsx, nsy, nsz))
-    wi = -dirn
-    cos_view = dot(wi, ns)
-
-    front_emit = active & (em > 0.0) & (cos_view > 0.0)
-    L = L + where(front_emit, T * Vec3(er, eg, eb), zero)
-
-    n = where(cos_view < 0.0, -ns, ns)
-
-    state, u1 = rng.next_uniform(state)
-    state, u2 = rng.next_uniform(state)
-    state, u3 = rng.next_uniform(state)
-    mat = _material(rec)
-    wo, is_spec, weight = brdf.sample_brdf_from_uniforms(mat, n, wi,
-                                                         u1, u2, u3)
-    ev_value, ev_pdf = brdf.eval_brdf(mat, n, wi, wo)
-
-    ok_spec = max_elem(weight) > 0.0
-    ok_scatter = (max_elem(ev_value) > 0.0) & (ev_pdf > 0.0)
-    pdf_safe = torch.where(ev_pdf > 0.0, ev_pdf, 1.0)
-    contrib = where(is_spec, weight, ev_value * (1.0 / pdf_safe))
-    ok = torch.where(is_spec, ok_spec, ok_scatter)
-
-    T = where(active & ok, T * contrib, T)
-    active = active & ok
-
-    org = where(active, Vec3(px, py, pz), org)
-    dirn = where(active, wo, dirn)
-
-    state, ru = rng.next_uniform(state)
-    if depth > rr_start_depth:
-        p = torch.clamp_min(1.0 - max_elem(T), 0.5)
-        kill = ru < p
-        scale = 1.0 / torch.where(~kill & (p < 1.0), 1.0 - p, 1.0)
-        T = where(active & ~kill, T * scale, T)
-        active = active & ~kill
-
-    if depth + 1 >= max_depth:
-        active = torch.zeros_like(active)
-    return org, dirn, T, L, active, state
-
-
 # -- the wave loop -----------------------------------------------------------
 
 def _sample_index(sample_start: int, samp: torch.Tensor) -> torch.Tensor:
@@ -623,17 +396,37 @@ def _sample_index(sample_start: int, samp: torch.Tensor) -> torch.Tensor:
     return torch.where(s >= 2 ** 31, s - 2 ** 32, s).to(torch.int32)
 
 
+def _shadow_waves(rec, light_rows, steps: WaveSteps, trace):
+    """The [L, N] closest triangle hit of each ray's shadow ray toward each
+    light (inf where the ray hit nothing, and so cast none): one shadow wave
+    per light through ``trace(org, dirn, tnear)``, over the rays that hit,
+    gathered by ``torch.nonzero``."""
+    n_lights, n = int(light_rows.shape[0]), int(rec.shape[1])
+    sdir = steps.shadow_rays(rec, light_rows)
+    ts = torch.full((n_lights, n), INF, dtype=torch.float32,
+                    device=rec.device)
+    idx = torch.nonzero(rec[0] < INF).reshape(-1)
+    if idx.numel():
+        so = Vec3(rec[4][idx], rec[5][idx], rec[6][idx])
+        for l in range(n_lights):
+            sd = Vec3(*(sdir[l, k][idx] for k in range(3)))
+            ts[l, idx] = trace(so, sd, SECONDARY_TNEAR)[0]
+    return ts
+
+
 def _render_chunk(scene, cam_data, width: int, height: int,
                   pix_slots, sample_start: int, num_samples: int, seed: int,
                   max_depth: int, rr_start_depth: int, sort_mode: str,
-                  light_rows, lo, inv_extent, tracer, record, stats: dict):
+                  light_rows, bg, lo, inv_extent, tracers, record,
+                  steps: WaveSteps, stats: dict):
     """Radiance sum [H, W, 3] of samples sample_start .. + num_samples.
     ``scene`` is a BrickSet or one of the experiments' sets: anything with
-    the background, ``sph_rows`` and ``num_spheres`` (and ``coarse_boxes``
-    for the "sig_mort" key).  ``tracer(scene, org, dirn, tnear)`` returns a
-    wave's closest triangle hits as a tuple whose first entry is t, and
+    ``sph_rows`` and ``num_spheres`` (and ``coarse_boxes`` for the
+    "sig_mort" key).  ``tracers(depth)`` is the engine of the waves at that
+    depth, ``tracer(scene, org, dirn, tnear)``, which returns a wave's
+    closest triangle hits as a tuple whose first entry is t, and
     ``record(scene, *hit, org, dirn, tnear)`` makes the 16-channel record
-    of them."""
+    of them ([16, N], or a tuple of 16 [N] tensors)."""
     dev = cam_data.device
     R = width * height
     n_slots = int(pix_slots.numel())
@@ -650,66 +443,47 @@ def _render_chunk(scene, cam_data, width: int, height: int,
     j = (pix // width).to(torch.float32)
     org, dirn = generate_primary_rays(cam_data, (i + u1) / width,
                                       (j + u2) / height)
-    n = int(pix.numel())
-    T = Vec3.full((n,), (1.0, 1.0, 1.0), device=dev)
-    L = Vec3.zeros((n,), device=dev)
-    bg = Vec3(scene.bg_r, scene.bg_g, scene.bg_b)
+    table = wave_step.make_table(org, dirn, state, pix, samp)
     out = torch.zeros((num_samples, R, 3), dtype=torch.float32, device=dev)
+    coarse = getattr(scene, "coarse_boxes", None)
 
-    def trace(o, d, tnear):
+    def trace(tracer, o, d, tnear):
         stats["waves"] = stats.get("waves", 0) + 1
         stats["rays"] = stats.get("rays", 0) + int(o.x.numel())
         return tracer(scene, o, d, tnear)
 
-    def shadow_t(sorg, sdir, mask):
-        ts = torch.full(mask.shape, INF, dtype=torch.float32, device=dev)
-        idx = torch.nonzero(mask).reshape(-1)
-        if idx.numel():
-            so = Vec3(*(c[idx] for c in sorg))
-            sd = Vec3(*(c[idx] for c in sdir))
-            st = trace(so, sd, SECONDARY_TNEAR)[0]
-            ts[idx] = _sphere_tmin(scene.sph_rows, scene.num_spheres, so,
-                                   sd, SECONDARY_TNEAR, st)
-        return ts
-
+    n = int(table.shape[1])
     depth = 0
     while n:
-        if depth and sort_mode != "none":
+        if depth:
             with record_function("wavefront.sort"):
-                if sort_mode == "mort_oct":
-                    key = _sort_key(org, dirn, lo, inv_extent)
-                else:
-                    key = _sig_key(org, dirn, lo, inv_extent,
-                                   scene.coarse_boxes)
-                perm = torch.sort(key, stable=True).indices
-                org = Vec3(*(c[perm] for c in org))
-                dirn = Vec3(*(c[perm] for c in dirn))
-                T = Vec3(*(c[perm] for c in T))
-                L = Vec3(*(c[perm] for c in L))
-                state, pix, samp = state[perm], pix[perm], samp[perm]
+                # ended rays key to INT32_MAX: one stable sort orders the
+                # live rays and sinks the others, one gather keeps the live
+                key = steps.key(table, sort_mode, lo, inv_extent, coarse)
+                perm = torch.sort(key, stable=True).indices[:n]
+                table = table.index_select(1, perm)
+        tracer = tracers(depth)
         tnear = 0.0 if depth == 0 else SECONDARY_TNEAR
+        org = wave_step.rows3(table, wave_step.ORG)
+        dirn = wave_step.rows3(table, wave_step.DIR)
         with record_function("wavefront.trace"):
-            hit = trace(org, dirn, tnear)
+            hit = trace(tracer, org, dirn, tnear)
         with record_function("wavefront.shade"):
             rec = record(scene, *hit, org, dirn, tnear)
+            if isinstance(rec, tuple):
+                rec = torch.stack(rec)
+            shadow_t = None
             if light_rows is not None:
-                L = L + _nee_term(rec, dirn, T, light_rows, shadow_t)
-            org, dirn, T, L, active, state = _shade(
-                rec, org, dirn, T, L, state, depth, bg, rr_start_depth,
-                max_depth)
+                shadow_t = _shadow_waves(
+                    rec, light_rows, steps,
+                    lambda o, d, tn: trace(tracer, o, d, tn))
+            table = steps.shade(table, rec, depth, bg, rr_start_depth,
+                                max_depth, out, light_rows, shadow_t,
+                                scene.sph_rows, scene.num_spheres)
         depth += 1
-
-        with record_function("wavefront.scatter"):
-            dead = ~active
-            out[samp[dead].long(), pix[dead].long()] = L.to_array()[dead]
-        with record_function("wavefront.compact"):
-            live = torch.nonzero(active).reshape(-1)
-            n = int(live.numel())
-            org = Vec3(*(c[live] for c in org))
-            dirn = Vec3(*(c[live] for c in dirn))
-            T = Vec3(*(c[live] for c in T))
-            L = Vec3(*(c[live] for c in L))
-            state, pix, samp = state[live], pix[live], samp[live]
+        with record_function("wavefront.count"):
+            # the one host read a wave: the next wave's size
+            n = int(torch.count_nonzero(table[wave_step.LIVE]))
     return out.sum(dim=0).reshape(height, width, 3)
 
 
@@ -718,12 +492,31 @@ def render_waves(scene, cam_data: torch.Tensor, width: int, height: int,
                  max_depth: int, rr_start_depth: int, sort_mode: str,
                  nee: bool, lo, hi, tracer, record, stats=None,
                  max_rays: int = MAX_RAYS_PER_WAVE, pix_slots=None,
-                 num_real=None) -> torch.Tensor:
+                 num_real=None, compact_tail: int = 8, tail_trace: str = "",
+                 steps: WaveSteps = STEPS) -> torch.Tensor:
     """The wave loop under ``render_samples_wavefront`` and the experiments'
     ``render_samples_mx`` / ``render_samples_mx2``: the radiance SUM of
     ``num_samples`` passes, [H, W, 3], over a scene whose box is ``lo`` ..
     ``hi`` (the sort keys' normalization), traced by ``tracer`` and recorded
     by ``record`` (see ``_render_chunk``).
+
+    A wave's rays are one ray table (ops/wave_step.py).  After the trace,
+    ``steps`` (default ``wave_step.STEPS``: kernels W1-W3 on a card, their
+    plain versions on the CPU; ``wave_step.PLAIN_STEPS`` runs the plain
+    versions anywhere) record the hits (a brick set's ``record`` is
+    ``steps.record``), shade the rays into a new table (the rows a tracer
+    was given stay as it saw them), write the radiance of the rays whose
+    path ended, and key the next wave; one stable sort and one
+    gather then order it and drop the ended rays.  The live count is the
+    one host read a wave.
+
+    ``compact_tail`` and ``tail_trace`` are the JAX package's compaction
+    ladder: with ``compact_tail > 0`` (and a sort mode other than "none",
+    which turns the ladder off there too) every wave from depth 2 on, its
+    shadow waves included, traces with the engine ``tail_trace`` names
+    (``parse_engine``; "" is ``tracer``).  The ladder's chunks of the JAX
+    package are a pure restructuring, which the compaction after every wave
+    here already does, so any ``compact_tail > 0`` gives the same image.
 
     ``pix_slots`` (int32, on the camera's device or any) is the slot ->
     pixel map to render, padding slots holding pixel id ``width*height``;
@@ -747,6 +540,10 @@ def render_waves(scene, cam_data: torch.Tensor, width: int, height: int,
                          f"boxes; {type(scene).__name__} has none")
     if max_depth < 1:
         raise ValueError("need max_depth >= 1")
+    if compact_tail < 0:
+        raise ValueError("need compact_tail >= 0")
+    tail = engine_tracer(tail_trace) if tail_trace else tracer
+    ladder = compact_tail > 0 and sort_mode != "none"
     dev = cam_data.device
     if scene.device != dev:
         raise ValueError(f"scene on {scene.device}, camera on {dev}")
@@ -755,6 +552,8 @@ def render_waves(scene, cam_data: torch.Tensor, width: int, height: int,
     if nee and int(scene.light_pos.shape[0]) > 0:
         light_rows = torch.cat([scene.light_pos, scene.light_intensity],
                                dim=1)
+    bg = torch.stack([scene.bg_r, scene.bg_g, scene.bg_b]).to(torch.float32)
+    lo = lo.to(torch.float32).contiguous()
     inv_extent = 1.0 / torch.clamp_min(hi - lo, 1e-12)
     if pix_slots is None:
         pix_slots = torch.from_numpy(_wave_layout(width, height)[0])
@@ -774,10 +573,12 @@ def render_waves(scene, cam_data: torch.Tensor, width: int, height: int,
         done = 0
         while done < num_samples:
             ns = min(chunk, num_samples - done)
-            acc += _render_chunk(scene, cam_data, width, height, slots,
-                                 sample_start + done, ns, seed, max_depth,
-                                 rr_start_depth, sort_mode, light_rows, lo,
-                                 inv_extent, tracer, record, stats)
+            acc += _render_chunk(
+                scene, cam_data, width, height, slots, sample_start + done,
+                ns, seed, max_depth, rr_start_depth, sort_mode, light_rows,
+                bg, lo, inv_extent,
+                lambda depth: tail if ladder and depth >= 2 else tracer,
+                record, steps, stats)
             done += ns
     return acc
 
@@ -790,27 +591,31 @@ def render_samples_wavefront(brickset: BrickSet, cam_data: torch.Tensor,
                              sort_mode: str = "sig_mort", nee: bool = False,
                              trace: str = "slim", tracer=None,
                              stats=None, pix_slots=None,
-                             num_real=None) -> torch.Tensor:
+                             num_real=None, compact_tail: int = 8,
+                             tail_trace: str = "",
+                             steps: WaveSteps = STEPS) -> torch.Tensor:
     """Large-scene drop-in for ops.integrator.render_samples: the radiance
     SUM of ``num_samples`` passes, [H, W, 3], on ``cam_data``'s device.
 
     ``trace`` names the per-wave engine of the closest-hit and the shadow
     waves ("slim", kernel B2, "slim2", kernel B4, "pairs[N]", kernel B5;
-    see ``parse_engine``).  The JAX package's ``compact_tail`` and
-    ``tail_trace`` shaped its compaction ladder; the per-wave compaction
-    here does what the ladder did, so they have no counterpart.
-    ``sort_mode`` picks the inter-wave key ("sig_mort", "mort_oct" or
-    "none").  ``tracer(bricks, org,
-    dirn, tnear) -> (t, slot)`` replaces the engine's per-wave trace (the
-    chip smoke passes a plain version to hold a kernel to it).  ``stats``, a dict, gets the count of traced waves
-    ("waves") and rays ("rays") added to it.  ``pix_slots`` and
-    ``num_real`` pick the slots and the passes that count (see
-    ``render_waves``)."""
+    see ``parse_engine``), and ``tail_trace`` the engine of the waves from
+    depth 2 on while ``compact_tail > 0`` (the JAX package's compaction
+    ladder; any ``compact_tail > 0`` gives the same image, see
+    ``render_waves``).  ``sort_mode`` picks the inter-wave key
+    ("sig_mort", "mort_oct" or "none").  ``tracer(bricks, org, dirn,
+    tnear) -> (t, slot)`` replaces ``trace``'s per-wave trace, and
+    ``steps`` the bounce step's kernels (the chip smoke passes plain
+    versions to hold the kernels to them).  ``stats``, a dict, gets the
+    count of traced waves ("waves") and rays ("rays") added to it.
+    ``pix_slots`` and ``num_real`` pick the slots and the passes that count
+    (see ``render_waves``)."""
     engine = engine_tracer(trace)
     # scene box = the top tree's root node
     root = brickset.top_boxes[0, :6]
     return render_waves(brickset, cam_data, width, height, sample_start,
                         num_samples, seed, max_depth, rr_start_depth,
                         sort_mode, nee, root[:3], root[3:], tracer or engine,
-                        _record_from_slots, stats, pix_slots=pix_slots,
-                        num_real=num_real)
+                        steps.record, stats, pix_slots=pix_slots,
+                        num_real=num_real, compact_tail=compact_tail,
+                        tail_trace=tail_trace, steps=steps)

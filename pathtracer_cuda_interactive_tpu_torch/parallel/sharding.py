@@ -186,7 +186,8 @@ def render_samples_sharded(scene, cam_data: torch.Tensor, width: int,
                            max_depth: int = MAX_DEPTH, mode: str = "xla",
                            rr_start_depth: int = RR_START_DEPTH,
                            sort_mode=None, nee: bool = False,
-                           trace: str = "slim") -> torch.Tensor:
+                           trace: str = "slim", compact_tail: int = 8,
+                           tail_trace: str = "") -> torch.Tensor:
     """The [H, W, 3] radiance sum of EXACTLY ``num_samples`` passes from
     ``sample_start``, computed across the mesh; every rank returns the
     whole image, on ``cam_data``'s device.
@@ -198,7 +199,9 @@ def render_samples_sharded(scene, cam_data: torch.Tensor, width: int,
       * "bricks"     — kernel B6 (BrickSet) on a range of 64x32 tiles;
         with ``nee`` it takes "wavefront" (B6 has no NEE);
       * "wavefront"  — the sorted wavefront (BrickSet), engine ``trace``
-        (B2 "slim", B4 "slim2", B5 "pairs[N]");
+        (B2 "slim", B4 "slim2", B5 "pairs[N]"), and from depth 2 on
+        ``tail_trace`` while ``compact_tail > 0`` (the JAX package's
+        compaction ladder, ops/wavefront.py::render_waves);
       * "mx"         — the Plucker-matmul rounds (MXSet; torch ops);
       * "mx2"        — kernel B7 (MX2Set).
     The wave paths ("wavefront", "mx", "mx2") render this rank's blocks of
@@ -224,7 +227,8 @@ def render_samples_sharded(scene, cam_data: torch.Tensor, width: int,
             out = _render_wave_mode(scene, cam_data, width, height,
                                     local_start, ns_local, num_real, seed,
                                     max_depth, mode, rr_start_depth,
-                                    sort_mode, nee, trace, slots)
+                                    sort_mode, nee, trace, slots,
+                                    compact_tail, tail_trace)
     elif mode == "megakernel":
         pix0, count = _split(R, mesh)
         if count and num_real:
@@ -253,14 +257,15 @@ def render_samples_sharded(scene, cam_data: torch.Tensor, width: int,
 
 def _render_wave_mode(scene, cam_data, width, height, local_start, ns_local,
                       num_real, seed, max_depth, mode, rr_start_depth,
-                      sort_mode, nee, trace, slots):
+                      sort_mode, nee, trace, slots, compact_tail,
+                      tail_trace):
     """One rank's part of a wave path: its slots, its passes."""
     common = dict(pix_slots=slots, num_real=num_real)
     if mode == "wavefront":
         return render_samples_wavefront(
             scene, cam_data, width, height, local_start, ns_local, seed,
             max_depth, rr_start_depth, sort_mode or "sig_mort", nee, trace,
-            **common)
+            compact_tail=compact_tail, tail_trace=tail_trace, **common)
     sort_mode = "mort_oct" if sort_mode in (None, "sig_mort") else sort_mode
     render = render_samples_mx if mode == "mx" else render_samples_mx2
     return render(scene, cam_data, width, height, local_start, ns_local,

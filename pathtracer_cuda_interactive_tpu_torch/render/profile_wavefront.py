@@ -1,9 +1,10 @@
 """Profile of the large-scene main path on one CUDA card.
 
 Builds scenes/blob_box.xml subdivided three levels (327,692 triangles),
-renders it with ``ProgressiveRenderer`` (the sorted wavefront with kernel
-B2) at the chip smoke's main-path shape, 640x480, 2 samples per frame,
-depth 50, and prints:
+renders it with ``ProgressiveRenderer`` (the sorted wavefront: kernel B2
+and the bounce step's W1-W3, or the ``--trace`` engine or
+``--mode`` path given) at the chip smoke's main-path shape, 640x480, 2
+samples per frame, depth 50, and prints:
 
 * the host build, split into parse + subdivide, pack + BVH, SAH + bricks;
 * 30 untraced synced frames after 3 warmup (median, min, max, waves per
@@ -23,7 +24,7 @@ untraced busy share, and is named so.
 Usage, from the root of a checkout:
 
     python -m pathtracer_cuda_interactive_tpu_torch.render.profile_wavefront \
-        [--out DIR]
+        [--trace slim|slim2|pairs[N]] [--mode wavefront|mx2|mx] [--out DIR]
 
 ``--out DIR`` writes the results as JSON and the profiler's tables as text
 into DIR.  No chrome trace is written: a few large-scene frames make one
@@ -60,84 +61,18 @@ def _range_device_us(event) -> float:
     return 0.0
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--out", default=None,
-                    help="also write the results and tables into this "
-                         "directory")
-    args = ap.parse_args(argv)
-
+def profile_frames(r, n: int, untraced: float, tables: bool = False) -> dict:
+    """``n`` synced frames of renderer ``r`` under ``torch.profiler``: their
+    host-clock time, the device time of their kernels and the busy share,
+    the kernel launches per frame, the ``wavefront.*`` ranges per frame and
+    the peak device memory, printed and returned (with ``tables`` also the
+    profiler's key averages, under "key_averages").  ``untraced``, the
+    median ms of untraced synced frames, is the denominator of the
+    estimated untraced busy share."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from .. import SCENES_DIR
-    from ..io.xml_scene import parse_scene
-    from ..models.bricks import BrickSet
-    from ..models.scenepack import pack_scene
-    from ..models.subdivide import subdivide_scene
-    from ..ops import wavefront as wf
-    from ..ops.camera import Camera
-    from ..utils.config import RenderConfig
-    from .renderer import ProgressiveRenderer
-
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_wavefront: needs a CUDA card")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-        timeout=60).stdout.strip().splitlines()[0]
-    print(card)
-    res = {"card": card, "width": WIDTH, "height": HEIGHT,
-           "spf": SPF, "levels": LEVELS}
-
-    t0 = time.perf_counter()
-    parsed = subdivide_scene(parse_scene(str(SCENES_DIR / "blob_box.xml")),
-                             levels=LEVELS)
-    t1 = time.perf_counter()
-    pack = pack_scene(parsed)
-    t2 = time.perf_counter()
-    bricks = BrickSet.from_pack(pack)
-    t3 = time.perf_counter()
-    res.update(triangles=pack.num_triangles, bricks=bricks.num_bricks,
-               parse_subdivide_s=t1 - t0, pack_bvh_s=t2 - t1,
-               sah_bricks_s=t3 - t2)
-    print(f"blob_box x{LEVELS}: {pack.num_triangles} triangles, "
-          f"{bricks.num_bricks} bricks; host build: parse+subdivide "
-          f"{t1 - t0:.3f} s, pack+BVH {t2 - t1:.3f} s, SAH+bricks "
-          f"{t3 - t2:.3f} s")
-
-    wf.load_library()
-    r = ProgressiveRenderer(bricks, Camera.from_parsed(parsed.camera),
-                            WIDTH, HEIGHT,
-                            RenderConfig(samples_per_frame=SPF),
-                            device="cuda")
-    for _ in range(WARMUP):
-        r.step(sync=True)
-
-    w0 = r.waves
-    ms = []
-    for _ in range(FRAMES):
-        r.step(sync=True)
-        ms.append(r.frame_ms)
-    waves_per_frame = (r.waves - w0) / FRAMES
-    median = statistics.median(ms)
-    res.update(frame_ms=ms, median_frame_ms=median,
-               waves_per_frame=waves_per_frame)
-    print(f"untraced synced frames: n {FRAMES}, median {median:.4f} ms, "
-          f"min {min(ms):.4f}, max {max(ms):.4f}; waves per frame "
-          f"{waves_per_frame:.2f}")
-
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(UNSYNCED):
-        r.step(sync=False)
-    torch.cuda.synchronize()
-    unsynced = (time.perf_counter() - t0) / UNSYNCED * 1e3
-    res["unsynced_frame_ms"] = unsynced
-    print(f"unsynced frames: n {UNSYNCED}, {unsynced:.4f} ms each")
-
     torch.cuda.reset_peak_memory_stats()
-    n = TRACED
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
@@ -173,17 +108,17 @@ def main(argv=None) -> int:
             else:
                 row["host_ms"] = e.cpu_time_total / n / 1e3
                 row["device_ms"] = _range_device_us(e) / n / 1e3
-    res.update(traced_frame_ms=traced, traced_device_ms=device_ms,
+    res = dict(traced_frame_ms=traced, traced_device_ms=device_ms,
                traced_busy_share=device_ms / traced,
-               estimated_untraced_busy_share=device_ms / median,
+               estimated_untraced_busy_share=device_ms / untraced,
                launches_per_frame=launches, ranges=ranges,
                peak_device_bytes=peak)
     print(f"traced synced frames: n {n}, {traced:.4f} ms each; device time "
           f"of their kernels {device_ms:.4f} ms per frame; busy share "
           f"{device_ms / traced:.4f} (same frames); estimated untraced busy "
-          f"share {device_ms / median:.4f} (device time of the traced frames "
-          f"over the untraced median, an estimate); {launches:.0f} kernel "
-          f"launches per frame; peak device memory {peak} bytes")
+          f"share {device_ms / untraced:.4f} (device time of the traced "
+          f"frames over the untraced median, an estimate); {launches:.0f} "
+          f"kernel launches per frame; peak device memory {peak} bytes")
     print("range, calls per frame, host ms per frame (inclusive), device ms "
           "of its kernels per frame, device span ms per frame")
     for key in sorted(ranges):
@@ -191,6 +126,100 @@ def main(argv=None) -> int:
         print(f"  {key} {row['calls']:.1f} {row.get('host_ms', 0.0):.4f} "
               f"{row.get('device_ms', 0.0):.4f} "
               f"{row.get('device_span_ms', 0.0):.4f}")
+    if tables:
+        res["key_averages"] = ka
+    return res
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--trace", default="slim",
+                    help="the wavefront's engine (RenderConfig."
+                         "wavefront_trace)")
+    ap.add_argument("--mode", default="wavefront",
+                    help="the large-scene path (RenderConfig."
+                         "large_scene_mode)")
+    ap.add_argument("--out", default=None,
+                    help="also write the results and tables into this "
+                         "directory")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    from .. import SCENES_DIR
+    from ..io.xml_scene import parse_scene
+    from ..models.bricks import BrickSet
+    from ..models.scenepack import pack_scene
+    from ..models.subdivide import subdivide_scene
+    from ..ops import wave_step
+    from ..ops import wavefront as wf
+    from ..ops.camera import Camera
+    from ..utils.config import RenderConfig
+    from .renderer import ProgressiveRenderer
+
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_wavefront: needs a CUDA card")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    print(card)
+    res = {"card": card, "width": WIDTH, "height": HEIGHT,
+           "spf": SPF, "levels": LEVELS, "trace": args.trace,
+           "mode": args.mode}
+
+    t0 = time.perf_counter()
+    parsed = subdivide_scene(parse_scene(str(SCENES_DIR / "blob_box.xml")),
+                             levels=LEVELS)
+    t1 = time.perf_counter()
+    pack = pack_scene(parsed)
+    t2 = time.perf_counter()
+    bricks = BrickSet.from_pack(pack)
+    t3 = time.perf_counter()
+    res.update(triangles=pack.num_triangles, bricks=bricks.num_bricks,
+               parse_subdivide_s=t1 - t0, pack_bvh_s=t2 - t1,
+               sah_bricks_s=t3 - t2)
+    print(f"blob_box x{LEVELS}: {pack.num_triangles} triangles, "
+          f"{bricks.num_bricks} bricks; host build: parse+subdivide "
+          f"{t1 - t0:.3f} s, pack+BVH {t2 - t1:.3f} s, SAH+bricks "
+          f"{t3 - t2:.3f} s")
+
+    wf.load_library()
+    wave_step.load_library()
+    # the Plucker paths build their own sets from the pack
+    r = ProgressiveRenderer(
+        bricks if args.mode in ("wavefront", "bricks") else pack,
+        Camera.from_parsed(parsed.camera), WIDTH, HEIGHT,
+        RenderConfig(samples_per_frame=SPF, wavefront_trace=args.trace,
+                     large_scene_mode=args.mode), device="cuda")
+    print(f"path {r.mode}, engine {args.trace}")
+    for _ in range(WARMUP):
+        r.step(sync=True)
+
+    w0 = r.waves
+    ms = []
+    for _ in range(FRAMES):
+        r.step(sync=True)
+        ms.append(r.frame_ms)
+    waves_per_frame = (r.waves - w0) / FRAMES
+    median = statistics.median(ms)
+    res.update(frame_ms=ms, median_frame_ms=median,
+               waves_per_frame=waves_per_frame)
+    print(f"untraced synced frames: n {FRAMES}, median {median:.4f} ms, "
+          f"min {min(ms):.4f}, max {max(ms):.4f}; waves per frame "
+          f"{waves_per_frame:.2f}")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(UNSYNCED):
+        r.step(sync=False)
+    torch.cuda.synchronize()
+    unsynced = (time.perf_counter() - t0) / UNSYNCED * 1e3
+    res["unsynced_frame_ms"] = unsynced
+    print(f"unsynced frames: n {UNSYNCED}, {unsynced:.4f} ms each")
+
+    res.update(profile_frames(r, TRACED, median, tables=args.out is not None))
+    ka = res.pop("key_averages", None)
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,"
          "temperature.gpu", "--format=csv,noheader"],

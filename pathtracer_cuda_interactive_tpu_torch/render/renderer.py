@@ -115,8 +115,10 @@ class ProgressiveRenderer:
         walks = self.mode == "bricks"
         if self.mode == "wavefront":
             # raises on a bad name; "slim[N]" and "slimg[N]" run kernel B2
-            walks = parse_engine(config.wavefront_trace)[0] in ("slim",
-                                                                "slimg")
+            engines = [parse_engine(config.wavefront_trace)[0]]
+            if config.wavefront_tail_trace:
+                engines.append(parse_engine(config.wavefront_tail_trace)[0])
+            walks = "slim" in engines or "slimg" in engines
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             # never fall back to another device
@@ -212,7 +214,9 @@ class ProgressiveRenderer:
                 self.scene, self._cam_data, self.width, self.height,
                 self.sample_count, ns, cfg.seed, cfg.max_depth,
                 cfg.rr_start_depth, nee=cfg.enable_nee,
-                trace=cfg.wavefront_trace, stats=self.stats)
+                trace=cfg.wavefront_trace, stats=self.stats,
+                compact_tail=cfg.wavefront_compact_tail,
+                tail_trace=cfg.wavefront_tail_trace)
         elif self.mode in ("mx", "mx2"):
             render = render_samples_mx if self.mode == "mx" \
                 else render_samples_mx2

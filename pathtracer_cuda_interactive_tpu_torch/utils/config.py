@@ -8,10 +8,10 @@ main.cu:131, RNG seed 1984 main.cu:61, UI ranges imgui_manager.cpp:101-105).
 Here they live in one dataclass, with the JAX package's defaults; its
 ``setup_jax`` has no counterpart.  The port runs every value of
 ``wavefront_trace`` (ops/wavefront.py::parse_engine) and of
-``large_scene_mode`` (render/renderer.py).  The JAX package's
-``wavefront_compact_tail`` and ``wavefront_tail_trace`` shaped its
-compaction ladder; the port compacts after every wave instead
-(ops/wavefront.py), so they have no counterpart.
+``large_scene_mode`` (render/renderer.py), and the JAX package's
+compaction-ladder knobs ``wavefront_compact_tail`` and
+``wavefront_tail_trace`` with its semantics (ops/wavefront.py::
+render_waves).
 """
 
 from __future__ import annotations
@@ -56,3 +56,10 @@ class RenderConfig:
     # from torch ops for packets of N x 128 rays, default 32
     # (ops/pairtrace.py, csrc/pair_trace.cu).
     wavefront_trace: str = "slim"
+    # the JAX package's compaction ladder (ops/wavefront.py::render_waves):
+    # its chunk count, 0 turns it off; the port compacts after every wave,
+    # so any value above 0 renders the same image
+    wavefront_compact_tail: int = 8
+    # with the ladder on, the engine of the waves from depth 2 on ("" = the
+    # same as wavefront_trace)
+    wavefront_tail_trace: str = ""

@@ -44,7 +44,7 @@ from pathtracer_cuda_interactive_tpu_torch.models.device_scene import (
     DeviceScene)
 from pathtracer_cuda_interactive_tpu_torch.models.scenepack import load_scene
 from pathtracer_cuda_interactive_tpu_torch.ops import (
-    cuda_build, integrator, pairtrace, wavefront)
+    brickkernel, cuda_build, integrator, pairtrace, wavefront)
 from pathtracer_cuda_interactive_tpu_torch.ops.camera import (
     Camera, camera_ray_data)
 from pathtracer_cuda_interactive_tpu_torch.ops.vec import Vec3
@@ -259,7 +259,7 @@ def test_plain_b7_t_is_the_walks(blob_mx2, n, seed):
     # same triangles: the records' p0, e1, e2 agree where t does
     hit = torch.from_numpy(~off) & (slot >= 0)
     mine = blob_mx2.tri_rows[slot[hit].long()][:, 1:10]
-    theirs = wavefront.slot_rows(bricks, walk_slot[hit])[:, 1:10]
+    theirs = brickkernel.slot_rows(bricks, walk_slot[hit])[:, 1:10]
     assert (mine != theirs).any(dim=1).float().mean() <= 1e-3
 
 

@@ -46,7 +46,7 @@ from pathtracer_cuda_interactive_tpu_torch.models.device_scene import (
     DeviceScene)
 from pathtracer_cuda_interactive_tpu_torch.models.scenepack import load_scene
 from pathtracer_cuda_interactive_tpu_torch.ops import (
-    brickkernel, integrator, pairtrace, trace, wavefront)
+    brickkernel, integrator, pairtrace, trace, wave_step, wavefront)
 from pathtracer_cuda_interactive_tpu_torch.ops.camera import (
     Camera, camera_ray_data)
 from pathtracer_cuda_interactive_tpu_torch.ops.vec import Vec3
@@ -252,12 +252,12 @@ def test_wave_layout_and_sort_keys_match_jax(blob):
     ref = jax_wavefront._sig_key(jo, jd, live, jnp.asarray(lo),
                                  jnp.asarray(inv),
                                  jnp.asarray(jbricks.coarse_boxes))
-    got = wavefront._sig_key(to, td, tlo, tinv, bricks.coarse_boxes)
+    got = wave_step._sig_key(to, td, tlo, tinv, bricks.coarse_boxes)
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref).reshape(-1))
     assert len(np.unique(got.numpy() >> 12)) > 4       # signatures differ
     ref = jax_wavefront._sort_key(jo, jd, live, jnp.asarray(lo),
                                   jnp.asarray(inv))
-    got = wavefront._sort_key(to, td, tlo, tinv)
+    got = wave_step._sort_key(to, td, tlo, tinv)
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref).reshape(-1))
     assert len(np.unique(got.numpy())) > 100
 
@@ -273,7 +273,7 @@ def test_record_from_slots_matches_jax(blob):
         jnp.asarray(slot.numpy().reshape(16, 128)),
         _vec(o, (16, 128)), _vec(d, (16, 128)), 1e-4,
         jnp.ones((16, 128), bool))
-    got = wavefront._record_from_slots(bricks, t, slot, _vec(o), _vec(d),
+    got = wave_step._record_from_slots(bricks, t, slot, _vec(o), _vec(d),
                                        1e-4)
     for k, (g, r) in enumerate(zip(got, ref)):
         np.testing.assert_allclose(g.numpy(), np.asarray(r).reshape(-1),

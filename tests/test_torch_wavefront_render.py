@@ -93,6 +93,23 @@ def test_wavefront_matches_jax(blob, sort_mode, nee):
     assert W * H <= stats["rays"] <= 3 * W * H * (2 if nee else 1)
 
 
+def test_tail_trace_matches_jax(blob):
+    """The compaction ladder's knobs: "slim" for the first two waves and
+    "slim2" (kernel B4's plain version) from depth 2 on, against the JAX
+    ladder with the same engines in interpret mode; 32x24, depth 4."""
+    jbricks, jcd, bricks, _, cd = blob
+    ref = np.asarray(jax_wavefront.render_samples_wavefront(
+        jbricks, jcd, W, H, 0, 1, max_depth=4, interpret=True, trace="slim",
+        tail_trace="slim2"))
+    stats = {}
+    got = wavefront.render_samples_wavefront(
+        bricks, cd, W, H, 0, 1, max_depth=4, trace="slim", tail_trace="slim2",
+        stats=stats)
+    assert ref.mean() > 0.0
+    assert_wavefront_parity(got.numpy(), ref)
+    assert stats["waves"] == 4
+
+
 def test_wavefront_matches_the_plain_integrator(blob):
     """The port's two large-scene renderers agree with each other deeper
     down, statistically (tests/test_megakernel.py:74-77)."""
