@@ -99,8 +99,7 @@ JAX, and fails with a non-zero exit code if any phase fails:
    sorted wavefront) — 10 synced frames after warmup with every plain
    version of the bounce step made to raise, B2's, W1's and W2's launches
    against the waves the renderer traced and W3's against the sorted ones,
-   the profile of 5 more frames (render/profile_wavefront.py: launches per
-   frame, busy share), a camera reset, a finite non-flat image and a PNG;
+   a camera reset, a finite non-flat image and a PNG;
 4c. the large scene's "bricks" path in the same call:
    ProgressiveRenderer with RenderConfig(large_scene_mode="bricks") at the
    same shape — 10 synced frames after warmup, one B6 launch per frame and
@@ -1043,7 +1042,7 @@ def main(argv=None) -> int:
     from pathtracer_cuda_interactive_tpu_torch.ops.camera import (
         Camera, camera_ray_data)
     from pathtracer_cuda_interactive_tpu_torch.render import (
-        kernel_stats, offline, profile_wavefront)
+        kernel_stats, offline)
     from pathtracer_cuda_interactive_tpu_torch.render.renderer import (
         ProgressiveRenderer)
     from pathtracer_cuda_interactive_tpu_torch.utils.config import (
@@ -2074,10 +2073,7 @@ def main(argv=None) -> int:
     big_renderer.save_png(str(big_png))
     print(f"the main path's bounce step: W1 {w1_launches}, W2 "
           f"{w2_launches}, W3 {w3_launches} launches for {waves} waves, no "
-          f"plain version run; profile of 5 more frames "
-          f"(render/profile_wavefront.py):")
-    big_profile = profile_wavefront.profile_frames(big_renderer, 5,
-                                                   big_median)
+          f"plain version run")
     cam = big_renderer.camera
     big_renderer.set_camera(Camera((0.2,) + tuple(cam.lookfrom[1:]),
                                    cam.lookat, cam.up, cam.vfov))
@@ -2095,7 +2091,6 @@ def main(argv=None) -> int:
                    large_waves_per_frame=waves / (warmup + big_frames),
                    large_avg_path_length=big_path_len,
                    b2_launches=b2_launches, w_launches=main_w,
-                   large_profile=big_profile,
                    large_image_mean=float(big_img.mean()))
     del big_renderer
 

@@ -238,7 +238,7 @@ def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, once per process."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+        lib = cuda_build.load(SOURCE, BUILD_DIR)
         fn = lib.pt_mx2_trace_launch
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr,   # ox oy oz dx dy dz

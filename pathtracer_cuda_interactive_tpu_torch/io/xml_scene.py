@@ -41,6 +41,7 @@ from ..models.ir import (Color, ImageTexture, ParsedBlinnPhong,
                          ParsedPhong, ParsedPlastic, ParsedPointLight,
                          ParsedScene, ParsedSphere, ParsedTriangleMesh)
 from ..utils import math3d as m3
+from ..utils.trace import setup_span
 from .obj import parse_obj
 from .ply import parse_ply
 from .serialized import parse_serialized
@@ -448,6 +449,7 @@ def _parse_shape(node: ET.Element, materials: List, material_map: Dict,
     return shape
 
 
+@setup_span("setup.parse")
 def parse_scene(filename: str) -> ParsedScene:
     """Parse a Mitsuba-0.6 scene XML file (reference: parse_scene.cpp:862-877)."""
     tree = ET.parse(filename)

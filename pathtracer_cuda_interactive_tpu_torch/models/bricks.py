@@ -38,6 +38,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..utils.trace import setup_span
 from .bvh import morton_codes
 from .device_scene import _build_prim_rows
 from .sah import build_sah_treelets
@@ -197,7 +198,8 @@ class BrickSet:
     def walk_table(self) -> WalkTable:
         """The set's ``WalkTable``, built on the first call and kept."""
         if self._walk is None:
-            self._walk = WalkTable.build(self)
+            with setup_span("setup.walk_table"):
+                self._walk = WalkTable.build(self)
         return self._walk
 
     def visit_boxes(self) -> torch.Tensor:
@@ -260,6 +262,7 @@ class BrickSet:
         return BrickSet(**kwargs)
 
     @staticmethod
+    @setup_span("setup.host_set")
     def from_pack(pack: ScenePack, device="cpu") -> "BrickSet":
         return BrickSet.from_numpy(device=device, **build_bricks(pack))
 

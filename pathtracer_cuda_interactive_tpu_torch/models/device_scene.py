@@ -18,6 +18,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..utils.trace import setup_span
 from .scenepack import ScenePack
 
 
@@ -127,6 +128,7 @@ class DeviceScene:
         return DeviceScene(**kwargs)
 
     @staticmethod
+    @setup_span("setup.host_set")
     def from_pack(pack: ScenePack, device="cpu") -> "DeviceScene":
         f32 = np.float32
         c = pack.sph_center.astype(f32)

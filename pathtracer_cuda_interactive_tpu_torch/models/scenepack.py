@@ -37,6 +37,7 @@ from typing import Tuple
 import numpy as np
 
 from ..utils import math3d as m3
+from ..utils.trace import setup_span
 from .bvh import FlatBVH, build_bvh
 from .ir import (ImageTexture, ParsedBlinnPhong, ParsedBlinnPhongMicrofacet,
                  ParsedDiffuse, ParsedDiffuseAreaLight, ParsedMirror,
@@ -146,6 +147,7 @@ def _pack_nodes(bvh: FlatBVH, sph_center, sph_radius, tri_v0, tri_e1, tri_e2,
     return nodes
 
 
+@setup_span("setup.pack")
 def pack_scene(parsed: ParsedScene) -> ScenePack:
     """Flatten a ParsedScene into device arrays + BVH (the analog of
     ``Scene(ParsedScene)`` + ``GPUScene::copyFrom``, scene.cpp:11-153 /

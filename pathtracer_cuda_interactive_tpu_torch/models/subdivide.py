@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..utils.trace import setup_span
 from .ir import ParsedScene, ParsedSphere, ParsedTriangleMesh
 
 
@@ -60,6 +61,7 @@ def subdivide_mesh(mesh: ParsedTriangleMesh,
         uvs=None if uv is None else uv.astype(np.float32))
 
 
+@setup_span("setup.subdivide")
 def subdivide_scene(parsed: ParsedScene, levels: int = 1,
                     min_tris: int = 1000) -> ParsedScene:
     """Subdivide every triangle mesh with >= ``min_tris`` triangles (small

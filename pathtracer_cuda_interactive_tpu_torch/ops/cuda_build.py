@@ -5,8 +5,9 @@ its own for ``sm_90a`` into a shared library under ``_build/`` beside the
 package, named by a hash of its source, the shared ``csrc/*.cuh`` headers
 and the flags, then loaded with ``ctypes`` by its op module
 (ops/megakernel.py, ops/wavefront.py, ops/brickkernel.py,
-ops/pairtrace.py).  A
-library that is already there is reused.  A missing ``nvcc`` or a failed
+ops/pairtrace.py, ops/wave_step.py, experiments/mx2.py) through ``load``,
+the set-up span ``setup.kernels`` (utils/trace.py).  A library that is
+already there is reused.  A missing ``nvcc`` or a failed
 build raises: there is no fallback.
 
 ``build_all`` starts one ``nvcc`` per missing library at once, so a fresh
@@ -15,12 +16,15 @@ checkout builds all kernels in the time of the slowest.
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 import time
 from pathlib import Path
+
+from ..utils.trace import setup_span
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -63,6 +67,12 @@ def build(source: Path, build_dir: Path = BUILD_DIR) -> Path:
     library's path.  Raises if nvcc is missing or the build fails."""
     build_all([source], build_dir)
     return library_path(source, build_dir)
+
+
+def load(source: Path, build_dir: Path = BUILD_DIR) -> ctypes.CDLL:
+    """Build ``source`` unless its library is there, and load it."""
+    with setup_span("setup.kernels"):
+        return ctypes.CDLL(str(build(source, build_dir)))
 
 
 def build_all(sources, build_dir: Path = BUILD_DIR) -> dict:

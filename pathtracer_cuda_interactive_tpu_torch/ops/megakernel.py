@@ -53,7 +53,7 @@ def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, once per process."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+        lib = cuda_build.load(SOURCE, BUILD_DIR)
         fn = lib.pt_megakernel_launch
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [ptr, i32, i32,             # prim_rows, S, F

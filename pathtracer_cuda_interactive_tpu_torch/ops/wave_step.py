@@ -402,7 +402,7 @@ def load_library() -> ctypes.CDLL:
     process.  Raises if nvcc is missing or the build fails."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(cuda_build.build(SOURCE, BUILD_DIR)))
+        lib = cuda_build.load(SOURCE, BUILD_DIR)
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.pt_wave_record_launch.argtypes = [
             ptr, ptr, ptr, ptr, ptr, ptr,   # ox oy oz dx dy dz

@@ -51,9 +51,9 @@ from pathlib import Path
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..models.bricks import BRICK_ROWS, STACK_DEPTH, BrickSet
+from ..utils.trace import NOOP, count, span
 from . import cuda_build, rng, wave_step
 from .brickkernel import (tile_grid, trace_bricks_full_plain,
                           trace_bricks_pipelined_plain, trace_bricks_plain,
@@ -132,7 +132,7 @@ def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, once per process."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+        lib = cuda_build.load(SOURCE, BUILD_DIR)
         fn = lib.pt_brick_trace_launch
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr,   # ox oy oz dx dy dz
@@ -235,7 +235,7 @@ def load_slim2_library() -> ctypes.CDLL:
     once per process.  Raises if nvcc is missing or the build fails."""
     global _slim2_lib
     if _slim2_lib is None:
-        lib = ctypes.CDLL(str(cuda_build.build(SLIM2_SOURCE, BUILD_DIR)))
+        lib = cuda_build.load(SLIM2_SOURCE, BUILD_DIR)
         fn = lib.pt_brick_trace_slim2_launch
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr,   # ox oy oz dx dy dz
@@ -405,7 +405,8 @@ def _shadow_waves(rec, light_rows, steps: WaveSteps, trace):
     sdir = steps.shadow_rays(rec, light_rows)
     ts = torch.full((n_lights, n), INF, dtype=torch.float32,
                     device=rec.device)
-    idx = torch.nonzero(rec[0] < INF).reshape(-1)
+    with span("frame.read"):
+        idx = torch.nonzero(rec[0] < INF).reshape(-1)
     if idx.numel():
         so = Vec3(rec[4][idx], rec[5][idx], rec[6][idx])
         for l in range(n_lights):
@@ -419,7 +420,8 @@ def _render_chunk(scene, cam_data, width: int, height: int,
                   max_depth: int, rr_start_depth: int, sort_mode: str,
                   light_rows, bg, lo, inv_extent, tracers, record,
                   steps: WaveSteps, stats: dict):
-    """Radiance sum [H, W, 3] of samples sample_start .. + num_samples.
+    """Radiance [num_samples, H*W, 3] of samples sample_start .. +
+    num_samples, each (sample, pixel) written once.
     ``scene`` is a BrickSet or one of the experiments' sets: anything with
     ``sph_rows`` and ``num_spheres`` (and ``coarse_boxes`` for the
     "sig_mort" key).  ``tracers(depth)`` is the engine of the waves at that
@@ -430,33 +432,42 @@ def _render_chunk(scene, cam_data, width: int, height: int,
     dev = cam_data.device
     R = width * height
     n_slots = int(pix_slots.numel())
-    pix = pix_slots.repeat(num_samples)
-    samp = torch.arange(num_samples, dtype=torch.int32,
-                        device=dev).repeat_interleave(n_slots)
-    keep = pix < R                       # padding slots never become rays
-    pix, samp = pix[keep], samp[keep]
+    with span("frame.rays"):
+        pix = pix_slots.repeat(num_samples)
+        samp = torch.arange(num_samples, dtype=torch.int32,
+                            device=dev).repeat_interleave(n_slots)
+        keep = pix < R                   # padding slots never become rays
+        # a boolean gather reads its count back to the host
+        with span("frame.read"):
+            pix = pix[keep]
+        with span("frame.read"):
+            samp = samp[keep]
 
-    state = rng.seed_rays(pix, _sample_index(sample_start, samp), seed)
-    state, u1 = rng.next_uniform(state)
-    state, u2 = rng.next_uniform(state)
-    i = (pix % width).to(torch.float32)
-    j = (pix // width).to(torch.float32)
-    org, dirn = generate_primary_rays(cam_data, (i + u1) / width,
-                                      (j + u2) / height)
-    table = wave_step.make_table(org, dirn, state, pix, samp)
-    out = torch.zeros((num_samples, R, 3), dtype=torch.float32, device=dev)
+        state = rng.seed_rays(pix, _sample_index(sample_start, samp), seed)
+        state, u1 = rng.next_uniform(state)
+        state, u2 = rng.next_uniform(state)
+        i = (pix % width).to(torch.float32)
+        j = (pix // width).to(torch.float32)
+        org, dirn = generate_primary_rays(cam_data, (i + u1) / width,
+                                          (j + u2) / height)
+        table = wave_step.make_table(org, dirn, state, pix, samp)
+        out = torch.zeros((num_samples, R, 3), dtype=torch.float32,
+                          device=dev)
     coarse = getattr(scene, "coarse_boxes", None)
 
     def trace(tracer, o, d, tnear):
+        n = int(o.x.numel())
         stats["waves"] = stats.get("waves", 0) + 1
-        stats["rays"] = stats.get("rays", 0) + int(o.x.numel())
+        stats["rays"] = stats.get("rays", 0) + n
+        count("waves")
+        count("rays", n)
         return tracer(scene, o, d, tnear)
 
     n = int(table.shape[1])
     depth = 0
     while n:
         if depth:
-            with record_function("wavefront.sort"):
+            with span("wavefront.sort"):
                 # ended rays key to INT32_MAX: one stable sort orders the
                 # live rays and sinks the others, one gather keeps the live
                 key = steps.key(table, sort_mode, lo, inv_extent, coarse)
@@ -466,9 +477,9 @@ def _render_chunk(scene, cam_data, width: int, height: int,
         tnear = 0.0 if depth == 0 else SECONDARY_TNEAR
         org = wave_step.rows3(table, wave_step.ORG)
         dirn = wave_step.rows3(table, wave_step.DIR)
-        with record_function("wavefront.trace"):
+        with span("wavefront.trace"):
             hit = trace(tracer, org, dirn, tnear)
-        with record_function("wavefront.shade"):
+        with span("wavefront.shade"):
             rec = record(scene, *hit, org, dirn, tnear)
             if isinstance(rec, tuple):
                 rec = torch.stack(rec)
@@ -481,10 +492,12 @@ def _render_chunk(scene, cam_data, width: int, height: int,
                                 max_depth, out, light_rows, shadow_t,
                                 scene.sph_rows, scene.num_spheres)
         depth += 1
-        with record_function("wavefront.count"):
-            # the one host read a wave: the next wave's size
-            n = int(torch.count_nonzero(table[wave_step.LIVE]))
-    return out.sum(dim=0).reshape(height, width, 3)
+        with span("wavefront.count"):
+            live = torch.count_nonzero(table[wave_step.LIVE])
+            with span("frame.read"):
+                # the one explicit host read a wave: the next wave's size
+                n = int(live)
+    return out
 
 
 def render_waves(scene, cam_data: torch.Tensor, width: int, height: int,
@@ -548,16 +561,23 @@ def render_waves(scene, cam_data: torch.Tensor, width: int, height: int,
     if scene.device != dev:
         raise ValueError(f"scene on {scene.device}, camera on {dev}")
     stats = {} if stats is None else stats
-    light_rows = None
-    if nee and int(scene.light_pos.shape[0]) > 0:
-        light_rows = torch.cat([scene.light_pos, scene.light_intensity],
-                               dim=1)
-    bg = torch.stack([scene.bg_r, scene.bg_g, scene.bg_b]).to(torch.float32)
-    lo = lo.to(torch.float32).contiguous()
-    inv_extent = 1.0 / torch.clamp_min(hi - lo, 1e-12)
-    if pix_slots is None:
-        pix_slots = torch.from_numpy(_wave_layout(width, height)[0])
-    pix_slots = torch.as_tensor(pix_slots, dtype=torch.int32, device=dev)
+    with span("frame.layout"):
+        light_rows = None
+        if nee and int(scene.light_pos.shape[0]) > 0:
+            light_rows = torch.cat([scene.light_pos, scene.light_intensity],
+                                   dim=1)
+        bg = torch.stack([scene.bg_r, scene.bg_g,
+                          scene.bg_b]).to(torch.float32)
+        lo = lo.to(torch.float32).contiguous()
+        inv_extent = 1.0 / torch.clamp_min(hi - lo, 1e-12)
+        if pix_slots is None:
+            pix_slots = torch.from_numpy(_wave_layout(width, height)[0])
+        pix_slots = torch.as_tensor(pix_slots)
+        # an upload from host memory waits for the card's queue
+        with span("frame.read") if pix_slots.device != dev else NOOP:
+            pix_slots = pix_slots.to(dtype=torch.int32, device=dev)
+        acc = torch.zeros((height, width, 3), dtype=torch.float32,
+                          device=dev)
     n_slots = int(pix_slots.numel())
     if num_real is not None:
         num_samples = max(0, min(num_real, num_samples))
@@ -566,19 +586,20 @@ def render_waves(scene, cam_data: torch.Tensor, width: int, height: int,
     if n_slots > max_rays:
         slice_len = max(gran, max_rays // gran * gran)
 
-    acc = torch.zeros((height, width, 3), dtype=torch.float32, device=dev)
     for s0 in range(0, n_slots, slice_len):
         slots = pix_slots[s0:s0 + slice_len]
         chunk = max(1, max_rays // int(slots.numel()))
         done = 0
         while done < num_samples:
             ns = min(chunk, num_samples - done)
-            acc += _render_chunk(
+            out = _render_chunk(
                 scene, cam_data, width, height, slots, sample_start + done,
                 ns, seed, max_depth, rr_start_depth, sort_mode, light_rows,
                 bg, lo, inv_extent,
                 lambda depth: tail if ladder and depth >= 2 else tracer,
                 record, steps, stats)
+            with span("frame.sum"):
+                acc += out.sum(dim=0).reshape(height, width, 3)
             done += ns
     return acc
 

@@ -45,6 +45,7 @@ from ..ops.megakernel import MEGAKERNEL_MAX_PRIMS, render_samples_megakernel
 from ..ops.wavefront import parse_engine, render_samples_wavefront
 from ..utils import image as img_util
 from ..utils.config import RenderConfig
+from ..utils.trace import setup_span, span
 
 
 # the large-scene paths and the set of tensors each one renders
@@ -125,16 +126,11 @@ class ProgressiveRenderer:
             raise RuntimeError(f"device {self.device} requested but CUDA "
                                "is not available")
         if isinstance(scene, (DeviceScene, BrickSet, MXSet, MX2Set)):
-            self.scene = scene.to(self.device)
+            host = scene
         elif self.mode in _LARGE_SETS:
-            self.scene = _LARGE_SETS[self.mode].from_pack(scene).to(
-                self.device)
+            host = _LARGE_SETS[self.mode].from_pack(scene)
         else:
-            self.scene = DeviceScene.from_pack(scene).to(self.device)
-        if walks and self.device.type == "cuda":
-            # kernels B2 and B6 read the set's walk table: build it now,
-            # as set-up, not inside the first frame
-            self.scene.walk_table()
+            host = DeviceScene.from_pack(scene)
         self.stats = {}
         self.camera = camera
         self.initial_camera = camera
@@ -142,9 +138,15 @@ class ProgressiveRenderer:
         self.height = height
         self.config = config
         self.samples_per_frame = config.samples_per_frame
-        self._cam_data = self._upload_camera(camera)
-        self.accum = torch.zeros((height, width, 3), dtype=torch.float32,
-                                 device=self.device)
+        with setup_span("setup.upload"):
+            self.scene = host.to(self.device)
+            self._cam_data = self._upload_camera(camera)
+            self.accum = torch.zeros((height, width, 3), dtype=torch.float32,
+                                     device=self.device)
+        if walks and self.device.type == "cuda":
+            # kernels B2 and B6 read the set's walk table: build it now,
+            # as set-up, not inside the first frame
+            self.scene.walk_table()
         self.sample_count = 0
         self.frame_ms = 0.0
 
@@ -205,10 +207,11 @@ class ProgressiveRenderer:
         cfg = self.config
         t0 = time.perf_counter()
         if self.mode == "megakernel":
-            new = render_samples_megakernel(
-                self.scene, self._cam_data, self.width, self.height,
-                self.sample_count, ns, cfg.seed, cfg.max_depth,
-                cfg.rr_start_depth, cfg.enable_nee)
+            with span("frame.launch"):
+                new = render_samples_megakernel(
+                    self.scene, self._cam_data, self.width, self.height,
+                    self.sample_count, ns, cfg.seed, cfg.max_depth,
+                    cfg.rr_start_depth, cfg.enable_nee)
         elif self.mode == "wavefront":
             new = render_samples_wavefront(
                 self.scene, self._cam_data, self.width, self.height,
@@ -225,16 +228,18 @@ class ProgressiveRenderer:
                          cfg.rr_start_depth, nee=cfg.enable_nee,
                          stats=self.stats)
         elif self.mode == "bricks":
-            new = render_samples_bricks(
-                self.scene, self._cam_data, self.width, self.height,
-                self.sample_count, ns, cfg.seed, cfg.max_depth,
-                cfg.rr_start_depth)
+            with span("frame.launch"):
+                new = render_samples_bricks(
+                    self.scene, self._cam_data, self.width, self.height,
+                    self.sample_count, ns, cfg.seed, cfg.max_depth,
+                    cfg.rr_start_depth)
         else:
             new = integrator.render_samples(
                 self.scene, self._cam_data, self.width, self.height,
                 self.sample_count, ns, cfg.seed, cfg.max_depth,
                 cfg.enable_nee, cfg.rr_start_depth)
-        self.accum += new
+        with span("frame.accumulate"):
+            self.accum += new
         if sync and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.frame_ms = (time.perf_counter() - t0) * 1e3

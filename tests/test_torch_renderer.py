@@ -22,8 +22,7 @@ from pathtracer_cuda_interactive_tpu_torch.models.device_scene import (
 from pathtracer_cuda_interactive_tpu_torch.models.scenepack import (
     load_scene, pack_scene)
 from pathtracer_cuda_interactive_tpu_torch.ops.camera import Camera
-from pathtracer_cuda_interactive_tpu_torch.render import (
-    offline, profile_wavefront)
+from pathtracer_cuda_interactive_tpu_torch.render import offline
 from pathtracer_cuda_interactive_tpu_torch.render.renderer import (
     ProgressiveRenderer, _render_mode)
 from pathtracer_cuda_interactive_tpu_torch.utils import image
@@ -314,9 +313,3 @@ def test_offline_cli_renders_the_large_scene(tmp_path, capsys):
     assert img.shape == (H, W, 3) and img.mean() > 0 and img.std() > 0
     text = capsys.readouterr().out
     assert "5133 primitives" in text and "Rendered 2 spp" in text
-
-
-def test_profile_wavefront_needs_a_card(monkeypatch):
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(SystemExit, match="needs a CUDA card"):
-        profile_wavefront.main([])
