@@ -60,6 +60,16 @@ JAX, and fails with a non-zero exit code if any phase fails:
    states, pixels, samples and live flags bit for bit and its floats within
    rtol 1e-4 on all but 1e-4 of the rays; each timed, with its plain
    version, on the primary and the sorted first-bounce wave;
+3j. the main path's fixed-capacity wave loop (ops/wavefront.py::WaveCache,
+   the wavefront's defaults at 640x480, 2 samples, depth 50): two frames,
+   the first capturing its CUDA graphs and the second replaying them
+   alone, each image and its waves and rays equal bit for bit to 3i's
+   frame through the live-prefix loop, each graph holding one launch of
+   B2, W1, W2 and W3 a wave; then B2 and W1-W3 in their counted form (a
+   device-side live count, ``ctl``) on the sorted first-bounce wave and
+   on the first wave with fewer rays than the chunk, each laid in its
+   capacity class: the live columns bit for bit the plain launch's, W3's
+   keys past them INT32_MAX, each timed beside the plain launch;
 3e. kernel B4 (B2's walk with the deferred leaf, engine "slim2") on the
    four waves of 3b: t and slot equal to its plain version over the walk
    table and to kernel B2 bit for bit; whole wavefront renders at 160x120
@@ -97,9 +107,11 @@ JAX, and fails with a non-zero exit code if any phase fails:
 4b. the large-scene main path: ProgressiveRenderer on the subdivided
    blob_box at 640x480, 2 samples per frame, depth 50, on cuda (the
    sorted wavefront) — 10 synced frames after warmup with every plain
-   version of the bounce step made to raise, B2's, W1's and W2's launches
-   against the waves the renderer traced and W3's against the sorted ones,
-   a camera reset, a finite non-flat image and a PNG;
+   version of the bounce step made to raise (the fixed-capacity loop, its
+   graphs captured in warmup), B2's, W1's, W2's and W3's launches over
+   the timed frames each one a primary graph replayed and GROUP_WAVES a
+   group, the waves traced no more than that and at most GROUP_WAVES - 1
+   fewer a frame, a camera reset, a finite non-flat image and a PNG;
 4c. the large scene's "bricks" path in the same call:
    ProgressiveRenderer with RenderConfig(large_scene_mode="bricks") at the
    same shape — 10 synced frames after warmup, one B6 launch per frame and
@@ -167,7 +179,8 @@ JAX, and fails with a non-zero exit code if any phase fails:
 5. the offline CLI on cuda.
 
 The wave paths (4b, 4e-4h) launch W2 and W3 on every wave (W1 on the
-brick engines' waves), and the other paths none of them.
+brick engines' waves; 4b also on the dead waves that end a chunk's last
+group), and the other paths none of them.
 
 Its last two lines are a JSON object describing each kernel (with its
 bound: the larger of the bytes the function must move over the card's
@@ -1826,17 +1839,18 @@ def main(argv=None) -> int:
     # main path's shape, and their times on its primary and sorted
     # first-bounce waves
     w_wrappers = wave_step_wrappers()
-    w_logs = {}
+    w_logs, w_frames = {}, {}
     for label, kw in (("blob_box x3", {}),
                       ("blob_box x3 nee depth 4", {"nee": True,
                                                    "max_depth": 4})):
         for wrapper in w_wrappers:
             wrapper.launches = 0
-        w_logs[label] = []
-        wf.render_samples_wavefront(big, cd, MAIN_W, MAIN_H, 0, SPP,
-                                    steps=ws.recording_steps(w_logs[label]),
-                                    **kw)
+        w_logs[label], frame_stats = [], {}
+        img = wf.render_samples_wavefront(
+            big, cd, MAIN_W, MAIN_H, 0, SPP, stats=frame_stats,
+            steps=ws.recording_steps(w_logs[label]), **kw)
         torch.cuda.synchronize()
+        w_frames[label] = (img, frame_stats)
     # the NEE render's: its shadow rays ran on every wave
     shadow_launches = ws.wave_shadow_rays_cuda.launches
     w_checks = [c for label, log in w_logs.items()
@@ -1940,7 +1954,142 @@ def main(argv=None) -> int:
           f"shadow rays {shadow_launches}")
     results.update(w_checks=w_checks, w_renders=w_renders, w_ms=w_ms,
                    b6_digest=b6_digest)
-    del w_logs
+    stamp("3i done")
+
+    # -- 3j. the main path's fixed-capacity loop at its shape: two frames
+    # through its graphs (the first captures them) against 3i's frame
+    # through the live-prefix loop, and its kernels' counted form on the
+    # sorted first-bounce wave laid in its capacity class
+    ref_img, ref_stats = w_frames["blob_box x3"]
+    wave_cache = wf.WaveCache()
+    graph_frames = []
+    for _ in range(2):
+        frame_stats = {}
+        img = wf.render_samples_wavefront(big, cd, MAIN_W, MAIN_H, 0, SPP,
+                                          stats=frame_stats,
+                                          wave_cache=wave_cache)
+        torch.cuda.synchronize()
+        graph_frames.append({"equal": bool(torch.equal(img, ref_img)),
+                             "stats": frame_stats,
+                             "replays": wave_cache.replays()})
+    del img, w_frames
+    chunks = list(wave_cache._chunks.values())
+    K = wf.GROUP_WAVES
+    per_graph = {str(name): n for c in chunks
+                 for name, n in c.launches.items()}
+    held = all(n == [1 if name == "primary" else K] * 4
+               for c in chunks for name, n in c.launches.items())
+    print(f"fixed-capacity loop {MAIN_W}x{MAIN_H} spf {SPP} depth 50: "
+          f"{len(chunks)} chunk(s) of {[c.capacity for c in chunks]} rays, "
+          f"classes {[c.classes for c in chunks]}; frames (capture, "
+          f"replay) equal to the live-prefix frame bit for bit "
+          f"{[f['equal'] for f in graph_frames]}, waves and rays "
+          f"{[f['stats'] for f in graph_frames]} against {ref_stats}, "
+          f"replays {graph_frames[-1]['replays']}; launches a graph "
+          f"[B2, W1, W2, W3] {per_graph}")
+    if not (all(f["equal"] and f["stats"] == ref_stats
+                for f in graph_frames) and held
+            and graph_frames[-1]["replays"]["primary"] == 2 * len(chunks)):
+        raise SystemExit("chip_smoke: the fixed-capacity loop's frame is "
+                         "not the live-prefix loop's, or its graphs do not "
+                         "hold one launch of B2, W1, W2 and W3 a wave")
+
+    def counted_form(wave):
+        """B2 and W1-W3 on wave ``wave`` of 3i's frame, its n rays laid in
+        the first columns of its capacity class: their counted launches
+        against the plain ones (the live columns bit for bit, W3's keys
+        past them INT32_MAX), both timed.  Returns (n, class, {kernel:
+        equal}, {kernel: times})."""
+        calls = wave_calls(w_logs["blob_box x3"], wave)
+        _, t1, slot1, org1, dirn1, tnear1 = calls["record"]
+        shade_args = calls["shade"]
+        mode, lo, inv_extent, coarse = calls["key"][1:5]
+        n = int(t1.numel())
+        cls = min(c for c in chunks[0].classes if c >= n)
+
+        def laid(x, fill=0.0):
+            """``x`` [..., n] in the first columns of [..., cls]."""
+            out = x.new_full((*x.shape[:-1], cls), fill)
+            out[..., :n] = x
+            return out
+
+        org_c, dirn_c = (type(v)(*(laid(c) for c in v))
+                         for v in (org1, dirn1))
+        ctl = ws.new_control("cuda")
+        ctl[ws.COUNT] = n
+        ctl[ws.DEPTH] = int(shade_args[2])
+        out_p, out_c = shade_args[6].clone(), shade_args[6].clone()
+        into = torch.empty((ws.TABLE_ROWS, cls), device="cuda")
+        key_c = torch.empty(cls, dtype=torch.int32, device="cuda")
+        t_c, slot_c = laid(t1, float("inf")), laid(slot1, -1)
+        table_c, rec_c = laid(shade_args[0]), laid(shade_args[1])
+        runs = {
+            "B2": (lambda: wf.trace_bricks_cuda(big, *org1, *dirn1, tnear1),
+                   lambda: wf.trace_bricks_cuda(big, *org_c, *dirn_c,
+                                                tnear1, ctl)),
+            "W1": (lambda: ws.wave_record_cuda(*calls["record"]),
+                   lambda: ws.wave_record_cuda(big, t_c, slot_c, org_c,
+                                               dirn_c, tnear1, ctl)),
+            "W2": (lambda: ws.wave_shade_cuda(*shade_args[:6], out_p,
+                                              *shade_args[7:]),
+                   lambda: ws.wave_shade_cuda(table_c, rec_c, 0,
+                                              *shade_args[3:6], out_c,
+                                              ctl=ctl, into=into)),
+        }
+        got = {name: (plain(), fn()) for name, (plain, fn) in runs.items()}
+        new_p = got["W2"][0]
+        runs["W3"] = (
+            lambda: ws.wave_sort_key_cuda(new_p, mode, lo, inv_extent,
+                                          coarse),
+            lambda: ws.wave_sort_key_cuda(into, mode, lo, inv_extent,
+                                          coarse, ctl, key_c))
+        got["W3"] = tuple(fn() for fn in runs["W3"])
+        torch.cuda.synchronize()
+        bits = lambda x: (x.view(torch.int32) if x.dtype == torch.float32
+                          else x)
+        same = {
+            "B2": all(torch.equal(bits(p), bits(c[:n]))
+                      for p, c in zip(*got["B2"])),
+            "W1": torch.equal(bits(got["W1"][0]),
+                              bits(got["W1"][1][:, :n])),
+            "W2": (torch.equal(bits(new_p), bits(into[:, :n]))
+                   and torch.equal(bits(out_p), bits(out_c))),
+            "W3": (torch.equal(got["W3"][0], key_c[:n])
+                   and bool((key_c[n:] == ws.INT32_MAX).all())),
+        }
+        times = {}
+        for name, (plain, fn) in runs.items():
+            row = {"kernel": [], "counted": []}
+            for which in ("kernel", "counted", "counted", "kernel"):
+                row[which].append(cuda_ms(fn if which == "counted"
+                                          else plain, 20))
+            times[name] = {"kernel_ms": statistics.median(row["kernel"]),
+                           "counted_ms": statistics.median(row["counted"]),
+                           "timings": row}
+        return n, cls, same, times
+
+    # the sorted first-bounce wave (3i's timed wave) and the first wave
+    # with fewer rays than the chunk: columns past the count in its class
+    sizes = [int(args[1].numel()) for name, args in w_logs["blob_box x3"]
+             if name == "record"]
+    tail_wave = next(w for w, n in enumerate(sizes)
+                     if n < chunks[0].capacity)
+    counted = {}
+    for wave in (1, tail_wave):
+        n_rays, n_class, same, times = counted_form(wave)
+        counted[f"wave {wave}"] = {"rays": n_rays, "class": n_class,
+                                   "same": same, "times": times}
+        print(f"counted form on wave {wave} ({n_rays} rays in a class of "
+              f"{n_class} columns): equal to the plain launch bit for bit {same}; "
+              + ", ".join(f"{k} {v['counted_ms']:.4f} ms (plain launch "
+                          f"{v['kernel_ms']:.4f})"
+                          for k, v in times.items()))
+        if not all(same.values()):
+            raise SystemExit(f"chip_smoke: a counted launch on wave {wave} "
+                             f"differs from the plain one: {same}")
+    results.update(graph_frames=graph_frames, graph_launches=per_graph,
+                   counted=counted)
+    del w_logs, wave_cache
 
     counters = kernel_wrappers()
 
@@ -1952,7 +2101,7 @@ def main(argv=None) -> int:
         """Launches of W1, W2, W3 and the shadow rays since zero_counts."""
         return [wrapper.launches for wrapper in w_wrappers]
 
-    stamp("3i done")
+    stamp("3j done")
     # -- 4. the main path ---------------------------------------------------
     zero_counts()
     renderer = ProgressiveRenderer.from_xml(
@@ -2029,29 +2178,45 @@ def main(argv=None) -> int:
     if big_renderer.mode != "wavefront":
         raise SystemExit(f"chip_smoke: large scene took {big_renderer.mode}")
     zero_counts()
-    waves0 = big_renderer.waves
     warmup, big_frames = 2, 10
     with plain_versions_refused():
         for _ in range(warmup):
             big_renderer.step(sync=True)
+        # the timed frames' launches, waves and graph replays: the first
+        # frame captured the graphs
+        graph_kernels = (wf.trace_bricks_cuda, *w_wrappers)
+        launches0 = [w.launches for w in graph_kernels]
+        waves0 = big_renderer.waves
+        replays0 = big_renderer._wave_cache.replays()
         big_ms = []
         for _ in range(big_frames):
             big_renderer.step(sync=True)
             big_ms.append(big_renderer.frame_ms)
-    b2_launches = wf.trace_bricks_cuda.launches
+    b2_launches, *main_w = (w.launches - n
+                            for w, n in zip(graph_kernels, launches0))
+    w1_launches, w2_launches, w3_launches, _ = main_w
     waves = big_renderer.waves - waves0
+    primary, group = (big_renderer._wave_cache.replays()[k] - replays0[k]
+                      for k in ("primary", "group"))
+    n_chunks = len(big_renderer._wave_cache._chunks)
+    # every graph replayed launches B2, W1, W2 and W3 once a wave: once
+    # the primary graph, GROUP_WAVES a group's; the waves traced are those
+    # launches but the dead ones after a chunk's live count reached zero
+    # in its last group; no shadow ray without NEE
+    launched = primary + wf.GROUP_WAVES * group
     others = [w.launches for w in counters if w is not wf.trace_bricks_cuda]
-    if b2_launches != waves or waves < warmup + big_frames or any(others):
-        raise SystemExit(f"chip_smoke: {b2_launches} B2 launches for {waves} "
-                         f"waves, {others} launches of B1, B3, B6, B4, B5, B7 on "
-                         f"the large scene")
-    # every wave recorded and shaded by W1 and W2, every wave but a frame's
-    # first keyed by W3, no shadow ray without NEE
-    w1_launches, w2_launches, w3_launches, _ = main_w = w_launches()
-    if main_w != [waves, waves, waves - warmup - big_frames, 0]:
+    if (b2_launches != launched or primary != big_frames * n_chunks
+            or not waves <= launched
+            <= waves + (wf.GROUP_WAVES - 1) * primary
+            or waves < big_frames or any(others)):
+        raise SystemExit(f"chip_smoke: {b2_launches} B2 launches for "
+                         f"{primary} primary and {group} group replays, "
+                         f"{waves} waves, {others} launches of B1, B3, B6, "
+                         f"B4, B5, B7 on the large scene")
+    if main_w != [launched, launched, launched, 0]:
         raise SystemExit(f"chip_smoke: W1, W2, W3 and shadow-ray launches "
-                         f"{main_w} for {waves} waves in "
-                         f"{warmup + big_frames} frames")
+                         f"{main_w} for {launched} launches of B2 in "
+                         f"{big_frames} frames")
     big_median = statistics.median(big_ms)
     big_msamples = MAIN_W * MAIN_H * SPP / (big_median * 1e-3) / 1e6
     print(f"large main path {MAIN_W}x{MAIN_H} spf {SPP} depth 50: "
@@ -2059,9 +2224,10 @@ def main(argv=None) -> int:
           f"{max(big_ms):.4f} ms (min {min(big_ms):.4f}), "
           f"{big_msamples:.4f} Msamples/s, "
           f"{big_msamples * big_path_len:.4f} Mrays/s, "
-          f"{waves / (warmup + big_frames):.2f} waves per frame, avg path "
+          f"{waves / big_frames:.2f} waves per frame, avg path "
           f"length {big_path_len:.4f} rays/sample; B2 launches {b2_launches} "
-          f"for {waves} waves; scene build {scene_build_s:.2f} s, "
+          f"for {waves} waves ({primary} primary and {group} group graph "
+          f"replays); scene build {scene_build_s:.2f} s, "
           f"brick_data {big.brick_data.numel() * 4} bytes")
     big_img = big_renderer.hdr()
     if not (big_img.shape == (MAIN_H, MAIN_W, 3)
@@ -2088,7 +2254,7 @@ def main(argv=None) -> int:
     results.update(large_frame_ms=big_ms, large_median_frame_ms=big_median,
                    large_max_frame_ms=max(big_ms),
                    large_msamples_per_s=big_msamples,
-                   large_waves_per_frame=waves / (warmup + big_frames),
+                   large_waves_per_frame=waves / big_frames,
                    large_avg_path_length=big_path_len,
                    b2_launches=b2_launches, w_launches=main_w,
                    large_image_mean=float(big_img.mean()))
@@ -2484,6 +2650,11 @@ def main(argv=None) -> int:
         "max_abs_err": b2_err,
         "ms": wave_ms["bounce 1"]["kernel_ms"],
         "plain_ms": wave_ms["bounce 1"]["plain_ms"],
+        # its counted form (3j) on the same wave and on a tail wave
+        "counted": {w: {"rays": c["rays"], "class": c["class"],
+                        "ms": c["times"]["B2"]["counted_ms"],
+                        "plain_launch_ms": c["times"]["B2"]["kernel_ms"]}
+                    for w, c in counted.items()},
         **slim_bound,
         "library_ms": None,
     }, {
@@ -2559,7 +2730,7 @@ def main(argv=None) -> int:
     }]
     # the bounce step (3i): launches on the main path (4b), the shadow rays'
     # in 3i's NEE render; times on the sorted first-bounce wave of the large
-    # main path.  No one PyTorch call computes any of them.
+    # main path, and W1-W3's in their counted form (3j).  No one PyTorch call computes any of them.
     wave_step_source = str(ws.SOURCE.resolve().relative_to(root))
     jax_wavefront = "pathtracer_cuda_interactive_tpu/ops/wavefront.py"
     for name, key, replaces, launched, err, w_bound in (
@@ -2579,6 +2750,10 @@ def main(argv=None) -> int:
             "max_abs_err": err,
             "ms": w_ms["bounce 1"][key]["ms"],
             "plain_ms": w_ms["bounce 1"][key]["plain_ms"],
+            "counted": {w: {"rays": c["rays"], "class": c["class"],
+                            "ms": c["times"][key]["counted_ms"],
+                            "plain_launch_ms": c["times"][key]["kernel_ms"]}
+                        for w, c in counted.items() if key in c["times"]},
             **w_bound,
             "library_ms": None,
         })

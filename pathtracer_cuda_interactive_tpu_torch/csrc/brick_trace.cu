@@ -42,14 +42,22 @@ namespace {
 using namespace pt;
 
 constexpr int kBlock = 128;   // threads per block
+// the live count's slot in the fixed-capacity loop's control block
+// (ops/wave_step.py::COUNT; csrc/wave_step.cu)
+constexpr int kCount = 0;
 
+// `ctl` null: n rays; else the first min(n, ctl[kCount]) of the n columns,
+// and a block wholly past them returns at once
 __global__ void __launch_bounds__(kBlock)
 brick_trace(const float* __restrict__ ox, const float* __restrict__ oy,
             const float* __restrict__ oz, const float* __restrict__ dx,
             const float* __restrict__ dy, const float* __restrict__ dz, int n, float tnear,
-            WalkTable table, float* __restrict__ out_t, int* __restrict__ out_slot) {
+            WalkTable table, float* __restrict__ out_t, int* __restrict__ out_slot,
+            const long long* __restrict__ ctl) {
+  const int limit = ctl == nullptr ? n : (int)min((long long)n, ctl[kCount]);
+  if ((long long)blockIdx.x * blockDim.x >= limit) return;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool active = i < n;
+  const bool active = i < limit;
   V3 o = {0.0f, 0.0f, 0.0f}, d = o;
   if (active) {
     o = {ox[i], oy[i], oz[i]};
@@ -101,19 +109,22 @@ brick_trace_full(const float* __restrict__ ox, const float* __restrict__ oy,
 }  // namespace
 
 // Launch B2 on `stream`: `nodes` and `tris` are the set's walk table (16-byte
-// aligned), `gates` its sub_boxes.  The caller checks that the top tree's
-// depth + 2 is at most kStack.  Returns cudaGetLastError() (0 on success).
+// aligned), `gates` its sub_boxes.  `ctl`, the fixed-capacity loop's int64
+// control block on the card, may be null: with it only the first ctl[kCount]
+// of the n columns are traced, and t and slot past them are left as they
+// were.  The caller checks that the top tree's depth + 2 is at most kStack.
+// Returns cudaGetLastError() (0 on success).
 extern "C" int pt_brick_trace_launch(const float* ox, const float* oy, const float* oz,
                                      const float* dx, const float* dy, const float* dz, int n,
                                      float tnear, const void* nodes, const void* tris,
                                      const void* gates, float* out_t, int* out_slot,
-                                     void* stream) {
+                                     const long long* ctl, void* stream) {
   if (n <= 0) return 0;
   const WalkTable table = {(const float4*)nodes, (const float*)tris, (const float4*)gates,
                            nullptr};
   const dim3 grid((unsigned)((n + kBlock - 1) / kBlock));
   brick_trace<<<grid, kBlock, 0, (cudaStream_t)stream>>>(ox, oy, oz, dx, dy, dz, n, tnear,
-                                                         table, out_t, out_slot);
+                                                         table, out_t, out_slot, ctl);
   return (int)cudaGetLastError();
 }
 

@@ -35,6 +35,15 @@
 // column: origin (3), direction (3), throughput (3), radiance (3), the PCG
 // state, pixel and sample as int32 bits, and the live flag (1 or 0).
 //
+// The fixed-capacity wave loop (ops/wavefront.py::WaveCache) launches W1-W3
+// over a table of n columns, of which only a prefix holds the wave's rays,
+// and keeps its counts on the card, in an int64 control block `ctl`: the
+// wave's live count and depth are read there (a thread at or past the count
+// returns at once, or keys to INT32_MAX), W3 adds the next wave's live count
+// to it, and wave_tally moves the counts on from one wave to the next.  So
+// no wave needs a host read, and groups of waves replay as CUDA graphs.  A
+// null `ctl` is the live-prefix loop: every column a ray, `depth` as given.
+//
 // What bounds them on the card: bytes.  Each reads and writes a few rows of
 // 4 bytes per ray and does a few hundred operations at most (W3's "sig_mort"
 // tests 16 boxes); at the 614,400 rays of a 640x480, 2-sample wave W1 and W2
@@ -67,6 +76,17 @@ constexpr float kShadowScale = (float)(1.0 - 1e-3);
 
 // sort keys (ops/wave_step.py::SORT_MODES)
 constexpr int kSigMort = 0, kMortOct = 1, kNone = 2;
+
+// the control block's slots (ops/wave_step.py::COUNT .. RAYS): the live
+// rays at the head of the wave's table, the next wave's live count being
+// summed, the columns the last wave wrote, the depth, and the waves and rays
+// traced so far
+constexpr int kCount = 0, kNext = 1, kValid = 2, kDepth = 3, kWaves = 4, kRays = 5;
+
+// the columns of an n-column table that hold the wave's rays
+__device__ __forceinline__ int live_limit(const long long* ctl, int n) {
+  return ctl == nullptr ? n : (int)min((long long)n, ctl[kCount]);
+}
 
 __device__ __forceinline__ V3 row3(const float* rows, size_t n, int r, int i) {
   return {rows[r * n + i], rows[(r + 1) * n + i], rows[(r + 2) * n + i]};
@@ -106,9 +126,9 @@ wave_record(const float* __restrict__ ox, const float* __restrict__ oy,
             const float* __restrict__ dy, const float* __restrict__ dz,
             const float* __restrict__ t_in, const int* __restrict__ slot_in, int n, float tnear,
             const float* __restrict__ brick_data, const float* __restrict__ sph_rows, int S,
-            float* __restrict__ out) {
+            float* __restrict__ out, const long long* __restrict__ ctl) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+  if (i >= live_limit(ctl, n)) return;
   const V3 org = {ox[i], oy[i], oz[i]};
   const V3 dir = {dx[i], dy[i], dz[i]};
   const int slot = slot_in[i];
@@ -153,13 +173,15 @@ wave_shadow_rays(const float* __restrict__ rec, int n, const float* __restrict__
 }
 
 __global__ void __launch_bounds__(kBlock)
-wave_shade(const float* __restrict__ table, float* __restrict__ next,
+wave_shade(const float* __restrict__ table, float* __restrict__ next, size_t next_stride,
            const float* __restrict__ rec, int n,
            const float* __restrict__ shadow_t, const float* __restrict__ lights, int num_lights,
            const float* __restrict__ sph_rows, int S, const float* __restrict__ bg, int depth,
-           int rr_start_depth, int max_depth, float* __restrict__ out, int num_pixels) {
+           int rr_start_depth, int max_depth, float* __restrict__ out, int num_pixels,
+           const long long* __restrict__ ctl) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+  if (i >= live_limit(ctl, n)) return;
+  if (ctl != nullptr) depth = (int)ctl[kDepth];
   V3 org = row3(table, n, kOrg, i);
   V3 dir = row3(table, n, kDir, i);
   V3 T = row3(table, n, kThroughput, i);
@@ -211,14 +233,14 @@ wave_shade(const float* __restrict__ table, float* __restrict__ next,
 
   const float pix_bits = table[kPix * (size_t)n + i];
   const float samp_bits = table[kSamp * (size_t)n + i];
-  put3(next, n, kOrg, i, org);
-  put3(next, n, kDir, i, dir);
-  put3(next, n, kThroughput, i, T);
-  put3(next, n, kRadiance, i, L);
-  next[kState * (size_t)n + i] = __uint_as_float(state);
-  next[kPix * (size_t)n + i] = pix_bits;
-  next[kSamp * (size_t)n + i] = samp_bits;
-  next[kLive * (size_t)n + i] = live ? 1.0f : 0.0f;
+  put3(next, next_stride, kOrg, i, org);
+  put3(next, next_stride, kDir, i, dir);
+  put3(next, next_stride, kThroughput, i, T);
+  put3(next, next_stride, kRadiance, i, L);
+  next[kState * next_stride + i] = __uint_as_float(state);
+  next[kPix * next_stride + i] = pix_bits;
+  next[kSamp * next_stride + i] = samp_bits;
+  next[kLive * next_stride + i] = live ? 1.0f : 0.0f;
   if (!live) {
     const int pix = __float_as_int(pix_bits);
     const int samp = __float_as_int(samp_bits);
@@ -256,11 +278,12 @@ wave_sort_key(const float* __restrict__ ox, const float* __restrict__ oy,
               const float* __restrict__ dy, const float* __restrict__ dz,
               const float* __restrict__ live, int n, int mode, const float* __restrict__ lo,
               const float* __restrict__ inv_extent, const float* __restrict__ coarse, int K,
-              int* __restrict__ out) {
+              int* __restrict__ out, long long* __restrict__ ctl) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+  // a column at or past the wave's rays keys to INT32_MAX, whatever it holds
+  const bool is_live = i < live_limit(ctl, n) && live[i] > 0.0f;
   int key;
-  if (!(live[i] > 0.0f)) {
+  if (!is_live) {
     key = INT32_MAX;
   } else if (mode == kNone) {
     key = 0;
@@ -280,7 +303,27 @@ wave_sort_key(const float* __restrict__ ox, const float* __restrict__ oy,
     const int mb = min(7, (30 - K) / 3);
     key = (sig << (3 * mb)) | morton(o, lo, inv_extent, (float)((1 << mb) - 1));
   }
-  out[i] = key;
+  if (i < n) out[i] = key;
+  if (ctl != nullptr) {
+    // the next wave's live count: one atomic a block
+    const int block_live = __syncthreads_count(is_live);
+    if (threadIdx.x == 0 && block_live > 0) {
+      atomicAdd((unsigned long long*)(ctl + kNext), (unsigned long long)block_live);
+    }
+  }
+}
+
+// one thread: the wave just traced (kCount rays) adds to the tallies, its
+// columns become kValid, the live count W3 summed becomes kCount, the depth
+// goes up by one
+__global__ void wave_tally(long long* __restrict__ ctl) {
+  const long long n = ctl[kCount];
+  ctl[kWaves] += n > 0 ? 1 : 0;
+  ctl[kRays] += n;
+  ctl[kValid] = n;
+  ctl[kCount] = ctl[kNext];
+  ctl[kNext] = 0;
+  ctl[kDepth] += 1;
 }
 
 int blocks(int n) { return (n + kBlock - 1) / kBlock; }
@@ -289,7 +332,8 @@ int blocks(int n) { return (n + kBlock - 1) / kBlock; }
 
 // Each launch function runs its kernel on `stream` and returns
 // cudaGetLastError() (0 on success); an empty wave launches nothing.  The
-// caller checks shapes, types and devices (ops/wave_step.py).
+// caller checks shapes, types and devices (ops/wave_step.py).  `ctl`, the
+// fixed-capacity loop's int64 control block, may be null (see the top).
 
 // W1: `brick_data` the set's [B, 136, 128] bricks, `sph_rows` its [S, 32]
 // resident spheres; out [16, n].
@@ -297,10 +341,11 @@ extern "C" int pt_wave_record_launch(const float* ox, const float* oy, const flo
                                      const float* dx, const float* dy, const float* dz,
                                      const float* t, const int* slot, int n, float tnear,
                                      const float* brick_data, const float* sph_rows,
-                                     int num_spheres, float* out, void* stream) {
+                                     int num_spheres, float* out, const long long* ctl,
+                                     void* stream) {
   if (n <= 0) return 0;
   wave_record<<<blocks(n), kBlock, 0, (cudaStream_t)stream>>>(
-      ox, oy, oz, dx, dy, dz, t, slot, n, tnear, brick_data, sph_rows, num_spheres, out);
+      ox, oy, oz, dx, dy, dz, t, slot, n, tnear, brick_data, sph_rows, num_spheres, out, ctl);
   return (int)cudaGetLastError();
 }
 
@@ -314,30 +359,38 @@ extern "C" int pt_wave_shadow_rays_launch(const float* rec, int n, const float* 
   return (int)cudaGetLastError();
 }
 
-// W2: `table` [16, n] in, `next` [16, n] out, `rec` [16, n], `shadow_t`
-// [L, n] (null without lights), `bg` [3], out [num_samples, num_pixels, 3].
-extern "C" int pt_wave_shade_launch(const float* table, float* next, const float* rec, int n,
-                                    const float* shadow_t,
+// W2: `table` [16, n] in, `next` [16, >= n] out with rows `next_stride`
+// floats apart, `rec` [16, n], `shadow_t` [L, n] (null without lights),
+// `bg` [3], out [num_samples, num_pixels, 3].
+extern "C" int pt_wave_shade_launch(const float* table, float* next, long long next_stride,
+                                    const float* rec, int n, const float* shadow_t,
                                     const float* lights, int num_lights, const float* sph_rows,
                                     int num_spheres, const float* bg, int depth,
                                     int rr_start_depth, int max_depth, float* out,
-                                    int num_pixels, void* stream) {
+                                    int num_pixels, const long long* ctl, void* stream) {
   if (n <= 0) return 0;
   wave_shade<<<blocks(n), kBlock, 0, (cudaStream_t)stream>>>(
-      table, next, rec, n, shadow_t, lights, num_lights, sph_rows, num_spheres, bg, depth,
-      rr_start_depth, max_depth, out, num_pixels);
+      table, next, (size_t)next_stride, rec, n, shadow_t, lights, num_lights, sph_rows,
+      num_spheres, bg, depth, rr_start_depth, max_depth, out, num_pixels, ctl);
   return (int)cudaGetLastError();
 }
 
 // W3: `live` [n] (1 or 0), `lo` and `inv_extent` [3], `coarse` [K, 8] (read
-// for "sig_mort" only); out [n].
+// for "sig_mort" only); out [n].  With `ctl`, adds the live count to its
+// kNext.
 extern "C" int pt_wave_sort_key_launch(const float* ox, const float* oy, const float* oz,
                                        const float* dx, const float* dy, const float* dz,
                                        const float* live, int n, int mode, const float* lo,
                                        const float* inv_extent, const float* coarse, int K,
-                                       int* out, void* stream) {
+                                       int* out, long long* ctl, void* stream) {
   if (n <= 0) return 0;
   wave_sort_key<<<blocks(n), kBlock, 0, (cudaStream_t)stream>>>(
-      ox, oy, oz, dx, dy, dz, live, n, mode, lo, inv_extent, coarse, K, out);
+      ox, oy, oz, dx, dy, dz, live, n, mode, lo, inv_extent, coarse, K, out, ctl);
+  return (int)cudaGetLastError();
+}
+
+// The control block's step from one wave to the next (wave_tally).
+extern "C" int pt_wave_tally_launch(long long* ctl, void* stream) {
+  wave_tally<<<1, 1, 0, (cudaStream_t)stream>>>(ctl);
   return (int)cudaGetLastError();
 }

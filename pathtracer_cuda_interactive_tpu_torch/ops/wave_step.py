@@ -34,6 +34,16 @@ Each wrapper dispatches on the device of its tensors: CUDA tensors launch
 the kernel and never fall back, CPU tensors run the plain version.
 ``STEPS`` holds the wrappers and ``PLAIN_STEPS`` the plain versions, which
 the chip smoke runs on the card to hold the kernels to them.
+
+The fixed-capacity wave loop (ops/wavefront.py::WaveCache) keeps a chunk's
+rays in one table of fixed capacity and its counts in an int64 control
+block on the card (``new_control``: the live rays at the head of the
+wave's table, ``COUNT``; the next wave's live count being summed,
+``NEXT``; the columns the last wave wrote, ``VALID``; the depth; the waves
+and rays traced).  ``record_counted``, ``shade_counted`` and
+``key_counted`` are W1-W3 over the table's first ``COUNT`` columns, read
+on the card, and ``tally`` moves the counts on from one wave to the next,
+so that no wave needs a host read.
 """
 
 from __future__ import annotations
@@ -58,6 +68,10 @@ SORT_MODES = ("sig_mort", "mort_oct", "none")
 ORG, DIR, THROUGHPUT, RADIANCE = 0, 3, 6, 9
 STATE, PIX, SAMP, LIVE = 12, 13, 14, 15
 TABLE_ROWS = 16
+
+# slots of the fixed-capacity loop's control block (csrc/wave_step.cu)
+COUNT, NEXT, VALID, DEPTH, WAVES, RAYS = range(6)
+CONTROL_SLOTS = 8
 
 SOURCE = cuda_build.CSRC_DIR / "wave_step.cu"
 BUILD_DIR = cuda_build.BUILD_DIR
@@ -408,21 +422,24 @@ def load_library() -> ctypes.CDLL:
             ptr, ptr, ptr, ptr, ptr, ptr,   # ox oy oz dx dy dz
             ptr, ptr, i32, f32,             # t, slot, n, tnear
             ptr, ptr, i32,                  # brick_data, sph_rows, S
-            ptr, ptr]                       # out, stream
+            ptr, ptr, ptr]                  # out, ctl, stream
         lib.pt_wave_shadow_rays_launch.argtypes = [
             ptr, i32, ptr, i32, ptr, ptr]   # rec, n, lights, L, out, stream
         lib.pt_wave_shade_launch.argtypes = [
-            ptr, ptr, ptr, i32, ptr,        # table, next, rec, n, shadow_t
+            ptr, ptr, ctypes.c_longlong,    # table, next, next_stride
+            ptr, i32, ptr,                  # rec, n, shadow_t
             ptr, i32, ptr, i32, ptr,        # lights, L, sph_rows, S, bg
             i32, i32, i32,                  # depth, rr_start, max_depth
-            ptr, i32, ptr]                  # out, pixels, stream
+            ptr, i32, ptr, ptr]             # out, pixels, ctl, stream
         lib.pt_wave_sort_key_launch.argtypes = [
             ptr, ptr, ptr, ptr, ptr, ptr,   # ox oy oz dx dy dz
             ptr, i32, i32,                  # live, n, mode
             ptr, ptr, ptr, i32,             # lo, inv_extent, coarse, K
-            ptr, ptr]                       # out, stream
+            ptr, ptr, ptr]                  # out, ctl, stream
+        lib.pt_wave_tally_launch.argtypes = [ptr, ptr]  # ctl, stream
         for fn in (lib.pt_wave_record_launch, lib.pt_wave_shadow_rays_launch,
-                   lib.pt_wave_shade_launch, lib.pt_wave_sort_key_launch):
+                   lib.pt_wave_shade_launch, lib.pt_wave_sort_key_launch,
+                   lib.pt_wave_tally_launch):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -452,12 +469,23 @@ def _launch(name: str, fn, device, *args) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
+def _control(ctl, device):
+    """The data pointer of a control block ``ctl`` (a null pointer for
+    None), checked to be an int64 [CONTROL_SLOTS] tensor on ``device``."""
+    if ctl is None:
+        return None
+    _check(device, [("ctl", ctl, torch.int64, (CONTROL_SLOTS,))])
+    return ctl.data_ptr()
+
+
 def wave_record_cuda(bricks: BrickSet, t, slot, org: Vec3, dirn: Vec3,
-                     tnear: float) -> torch.Tensor:
+                     tnear: float, ctl=None) -> torch.Tensor:
     """Launch W1 on the current stream: the [16, N] record of a wave's rays
     (contiguous float32 [N] components on one card) from the trace's t [N]
     f32 and slot [N] i32.  Adds one to ``wave_record_cuda.launches`` per
-    launch; an empty wave launches nothing."""
+    launch; an empty wave launches nothing.  With a control block ``ctl``
+    only its ``COUNT`` first rays are recorded (the rest of the record is
+    left unwritten)."""
     device = t.device
     n = int(t.numel())
     _check(device, [(f"ray row {k}", c, torch.float32, (n,))
@@ -473,7 +501,7 @@ def wave_record_cuda(bricks: BrickSet, t, slot, org: Vec3, dirn: Vec3,
                 *(c.data_ptr() for c in (*org, *dirn)), t.data_ptr(),
                 slot.data_ptr(), n, float(tnear), bricks.brick_data.data_ptr(),
                 bricks.sph_rows.data_ptr(), bricks.num_spheres,
-                out.data_ptr())
+                out.data_ptr(), _control(ctl, device))
         wave_record_cuda.launches += 1
     return out
 
@@ -506,11 +534,15 @@ wave_shadow_rays_cuda.launches = 0
 def wave_shade_cuda(table: torch.Tensor, rec: torch.Tensor, depth: int, bg,
                     rr_start_depth: int, max_depth: int, out: torch.Tensor,
                     light_rows=None, shadow_t=None, sph_rows=None,
-                    num_spheres: int = 0) -> torch.Tensor:
+                    num_spheres: int = 0, ctl=None,
+                    into=None) -> torch.Tensor:
     """Launch W2 on the current stream: ``shade_plain``'s contract on a
-    table of N rays on one card; returns the fresh new table.  Adds one to
-    ``wave_shade_cuda.launches`` per launch; an empty wave launches
-    nothing."""
+    table of N rays on one card; returns the fresh new table, or writes it
+    into ``into`` (float32 [16, N] with contiguous rows) and returns that.
+    Adds one to ``wave_shade_cuda.launches`` per launch; an empty wave
+    launches nothing.  With a control block ``ctl`` only its ``COUNT``
+    first rays are shaded, at its ``DEPTH`` (``depth`` is not read), and
+    the rest of the new table is left unwritten."""
     device = table.device
     n = int(table.shape[1]) if table.ndim == 2 else -1
     named = [("table", table, torch.float32, (16, n)),
@@ -526,16 +558,20 @@ def wave_shade_cuda(table: torch.Tensor, rec: torch.Tensor, depth: int, bg,
     _check(device, named)
     if out.ndim != 3 or out.shape[2] != 3:
         raise ValueError("out: need [num_samples, pixels, 3]")
-    new = torch.empty_like(table)
+    new = torch.empty_like(table) if into is None else into
+    if (new.device != device or new.dtype != torch.float32
+            or tuple(new.shape) != (16, n) or new.stride(1) != 1):
+        raise ValueError(f"into: need a float32 [16, {n}] tensor with "
+                         f"contiguous rows on {device}")
     if n:
         lib = load_library()
         ptr = lambda t: None if t is None or not n_lights else t.data_ptr()
         _launch("wave_shade", lib.pt_wave_shade_launch, device,
-                table.data_ptr(), new.data_ptr(), rec.data_ptr(), n,
-                ptr(shadow_t), ptr(light_rows), n_lights, ptr(sph_rows),
-                num_spheres if n_lights else 0, bg.data_ptr(), int(depth),
-                int(rr_start_depth), int(max_depth), out.data_ptr(),
-                int(out.shape[1]))
+                table.data_ptr(), new.data_ptr(), new.stride(0),
+                rec.data_ptr(), n, ptr(shadow_t), ptr(light_rows), n_lights,
+                ptr(sph_rows), num_spheres if n_lights else 0, bg.data_ptr(),
+                int(depth), int(rr_start_depth), int(max_depth),
+                out.data_ptr(), int(out.shape[1]), _control(ctl, device))
         wave_shade_cuda.launches += 1
     return new
 
@@ -544,30 +580,40 @@ wave_shade_cuda.launches = 0
 
 
 def wave_sort_key_cuda(table: torch.Tensor, mode: str, lo, inv_extent,
-                       coarse=None) -> torch.Tensor:
+                       coarse=None, ctl=None, out=None) -> torch.Tensor:
     """Launch W3 on the current stream: ``sort_key_plain``'s contract on a
-    table of N rays on one card; ``lo`` and ``inv_extent`` are [3] float32
-    tensors there.  Adds one to ``wave_sort_key_cuda.launches`` per launch;
-    an empty wave launches nothing."""
+    table of N rays on one card (rows contiguous); ``lo`` and
+    ``inv_extent`` are [3] float32 tensors there.  Returns a fresh int32
+    [N] key, or writes it into ``out`` and returns that.  Adds one to
+    ``wave_sort_key_cuda.launches`` per launch; an empty wave launches
+    nothing.  With a control block ``ctl`` every column at or past its
+    ``COUNT`` keys to INT32_MAX and the live count is added to its
+    ``NEXT``."""
     if mode not in SORT_MODES:
         raise ValueError(f"unknown sort mode {mode!r}")
     device = table.device
     n = int(table.shape[1]) if table.ndim == 2 else -1
-    named = [("table", table, torch.float32, (16, n)),
+    if table.ndim != 2 or table.shape[0] != 16 or table.stride(1) != 1:
+        raise ValueError(f"table: need a float32 [16, N] tensor with "
+                         f"contiguous rows, got {tuple(table.shape)}")
+    named = [("table row", table[0], torch.float32, (n,)),
              ("lo", lo, torch.float32, (3,)),
              ("inv_extent", inv_extent, torch.float32, (3,))]
     K = 0
     if mode == "sig_mort":
         K = int(coarse.shape[0])
         named.append(("coarse", coarse, torch.float32, (K, 8)))
+    if out is None:
+        out = torch.empty(n, dtype=torch.int32, device=device)
+    named.append(("out", out, torch.int32, (n,)))
     _check(device, named)
-    out = torch.empty(n, dtype=torch.int32, device=device)
     if n:
         _launch("wave_sort_key", load_library().pt_wave_sort_key_launch,
                 device, *(table[r].data_ptr() for r in range(ORG, DIR + 3)),
                 table[LIVE].data_ptr(), n, SORT_MODES.index(mode),
                 lo.data_ptr(), inv_extent.data_ptr(),
-                coarse.data_ptr() if K else None, K, out.data_ptr())
+                coarse.data_ptr() if K else None, K, out.data_ptr(),
+                _control(ctl, device))
         wave_sort_key_cuda.launches += 1
     return out
 
@@ -624,6 +670,82 @@ def wave_sort_key(table: torch.Tensor, mode: str, lo, inv_extent,
     if _on(table.device, "sort key"):
         return wave_sort_key_cuda(table, mode, lo, inv_extent, coarse)
     return sort_key_plain(table, mode, lo, inv_extent, coarse)
+
+
+# -- the fixed-capacity loop's steps -------------------------------------------
+
+def new_control(device) -> torch.Tensor:
+    """A zeroed control block (``COUNT`` .. ``RAYS``) on ``device``."""
+    return torch.zeros(CONTROL_SLOTS, dtype=torch.int64, device=device)
+
+
+def _head(ctl, n: int) -> int:
+    """The plain versions' prefix of an n-column table that holds the
+    wave's rays (a read of ``ctl``, on the CPU)."""
+    return min(int(ctl[COUNT]), n)
+
+
+def record_counted(bricks: BrickSet, t, slot, org: Vec3, dirn: Vec3,
+                   tnear: float, ctl) -> torch.Tensor:
+    """W1 over the first ``ctl[COUNT]`` of a wave's N columns: a [16, N]
+    record, whose other columns are left unwritten (zeros on the CPU)."""
+    if _on(t.device, "wave record"):
+        return wave_record_cuda(bricks, t, slot, org, dirn, tnear, ctl)
+    m = _head(ctl, int(t.numel()))
+    rec = torch.zeros((16, int(t.numel())), dtype=torch.float32)
+    head = lambda v: Vec3(*(c[:m] for c in v))
+    rec[:, :m] = record_plain(bricks, t[:m], slot[:m], head(org), head(dirn),
+                              tnear)
+    return rec
+
+
+def shade_counted(table: torch.Tensor, into: torch.Tensor, rec: torch.Tensor,
+                  ctl, bg, rr_start_depth: int, max_depth: int,
+                  out: torch.Tensor) -> torch.Tensor:
+    """W2 without lights over the first ``ctl[COUNT]`` rays of ``table``
+    [16, N], at depth ``ctl[DEPTH]``, into the same columns of ``into``
+    ([16, N], rows contiguous; its other columns stay as they were);
+    returns ``into``."""
+    if _on(table.device, "wave shade"):
+        return wave_shade_cuda(table, rec, 0, bg, rr_start_depth, max_depth,
+                               out, ctl=ctl, into=into)
+    m = _head(ctl, int(table.shape[1]))
+    into[:, :m] = shade_plain(table[:, :m], rec[:, :m], int(ctl[DEPTH]), bg,
+                              rr_start_depth, max_depth, out)
+    return into
+
+
+def key_counted(table: torch.Tensor, mode: str, lo, inv_extent, coarse, ctl,
+                key: torch.Tensor) -> torch.Tensor:
+    """W3 into ``key`` (int32 [N]) over ``table`` [16, N] (rows
+    contiguous), INT32_MAX at and past ``ctl[COUNT]``, and the live count
+    added to ``ctl[NEXT]``; returns ``key``."""
+    if _on(table.device, "sort key"):
+        return wave_sort_key_cuda(table, mode, lo, inv_extent, coarse, ctl,
+                                  key)
+    m = _head(ctl, int(table.shape[1]))
+    key.fill_(INT32_MAX)
+    key[:m] = sort_key_plain(table[:, :m], mode, lo, inv_extent, coarse)
+    ctl[NEXT] += int((table[LIVE, :m] > 0.0).sum())
+    return key
+
+
+def tally(ctl) -> None:
+    """The control block's step from one wave to the next: the wave just
+    traced (``COUNT`` rays) adds to ``WAVES`` and ``RAYS`` and its columns
+    become ``VALID``, the live count summed in ``NEXT`` becomes ``COUNT``,
+    and ``DEPTH`` goes up by one (the kernel ``wave_tally`` on a card)."""
+    if _on(ctl.device, "tally"):
+        _launch("wave_tally", load_library().pt_wave_tally_launch, ctl.device,
+                _control(ctl, ctl.device))
+        return
+    n = int(ctl[COUNT])
+    ctl[WAVES] += int(n > 0)
+    ctl[RAYS] += n
+    ctl[VALID] = n
+    ctl[COUNT] = ctl[NEXT]
+    ctl[NEXT] = 0
+    ctl[DEPTH] += 1
 
 
 class WaveSteps(NamedTuple):

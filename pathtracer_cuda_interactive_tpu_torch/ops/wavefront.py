@@ -21,7 +21,11 @@ package keeps a static [rows, 128] table with an active mask, a
 rays: the key of a ray whose path ended is INT32_MAX, so one stable sort
 orders the next wave and sinks the ended rays to the tail, as the JAX
 package's sort does, and one gather keeps the live prefix, whose length is
-the one host read a wave.  The same rays reach the same depths with the
+the one host read a wave.  On a card with kernel B2 and no point-light
+NEE, the fixed-capacity loop (``WaveCache``) runs the same waves without
+that read: the table keeps the chunk's capacity, the live count stays on
+the card, and groups of waves replay as CUDA graphs, one host read a
+group.  The same rays reach the same depths with the
 same RNG streams (2 camera jitter draws, then 3 BSDF draws and 1 RR draw
 per bounce, as in ops/integrator.py).  A ray's radiance is written when it
 dies, into a [num_samples, H*W, 3] buffer at its (sample, pixel), which is
@@ -138,7 +142,7 @@ def load_library() -> ctypes.CDLL:
         fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr,   # ox oy oz dx dy dz
                        i32, ctypes.c_float,            # n, tnear
                        ptr, ptr, ptr,                  # nodes, tris, gates
-                       ptr, ptr,                       # out_t, out_slot
+                       ptr, ptr, ptr,                  # out_t, out_slot, ctl
                        ptr]                            # stream
         fn.restype = ctypes.c_int
         fn = lib.pt_brick_trace_full_launch
@@ -186,12 +190,14 @@ def _check_wave(bricks: BrickSet, rays, name: str) -> int:
 
 def trace_bricks_cuda(bricks: BrickSet, ox: torch.Tensor, oy: torch.Tensor,
                       oz: torch.Tensor, dx: torch.Tensor, dy: torch.Tensor,
-                      dz: torch.Tensor, tnear: float):
+                      dz: torch.Tensor, tnear: float, ctl=None):
     """Launch kernel B2 on the current stream: the closest triangle hit of
     each of the N rays given as contiguous float32 [N] CUDA tensors.
     Returns fresh (t [N] f32, inf on a miss; slot [N] i32, -1 on a miss).
     Adds one to ``trace_bricks_cuda.launches`` per launch; an empty wave
-    launches nothing."""
+    launches nothing.  With the fixed-capacity loop's control block ``ctl``
+    (ops/wave_step.py) only its ``COUNT`` first rays are traced (t and slot
+    past them are left unwritten)."""
     n = _check_wave(bricks, (ox, oy, oz, dx, dy, dz), "trace_bricks_cuda")
     device = ox.device
     out_t = torch.empty(n, dtype=torch.float32, device=device)
@@ -205,7 +211,8 @@ def trace_bricks_cuda(bricks: BrickSet, ox: torch.Tensor, oy: torch.Tensor,
         err = lib.pt_brick_trace_launch(
             ox.data_ptr(), oy.data_ptr(), oz.data_ptr(), dx.data_ptr(),
             dy.data_ptr(), dz.data_ptr(), n, float(tnear), nodes, tris,
-            gates, out_t.data_ptr(), out_slot.data_ptr(), stream)
+            gates, out_t.data_ptr(), out_slot.data_ptr(),
+            wave_step._control(ctl, device), stream)
     if err != 0:
         raise RuntimeError(f"brick_trace launch failed: CUDA error {err}")
     trace_bricks_cuda.launches += 1
@@ -226,6 +233,27 @@ def trace_wave_slim(bricks: BrickSet, org: Vec3, dirn: Vec3, tnear: float):
     if device.type != "cuda":
         raise ValueError(f"no brick trace for device {device}")
     return trace_bricks_cuda(bricks, *org, *dirn, tnear)
+
+
+def trace_wave_counted(bricks: BrickSet, org: Vec3, dirn: Vec3, tnear: float,
+                       ctl):
+    """``trace_wave_slim`` over the first ``ctl[COUNT]`` of a wave's N
+    columns (the fixed-capacity loop's control block, ops/wave_step.py):
+    (t, slot) [N], unwritten past them on a card, a miss on the CPU."""
+    device = org.x.device
+    if bricks.device != device:
+        raise ValueError(f"bricks on {bricks.device}, rays on {device}")
+    if device.type == "cuda":
+        return trace_bricks_cuda(bricks, *org, *dirn, tnear, ctl)
+    if device.type != "cpu":
+        raise ValueError(f"no brick trace for device {device}")
+    n = int(org.x.numel())
+    m = min(int(ctl[wave_step.COUNT]), n)
+    t = torch.full((n,), INF, dtype=torch.float32)
+    slot = torch.full((n,), -1, dtype=torch.int32)
+    head = lambda v: Vec3(*(c[:m] for c in v))
+    t[:m], slot[:m] = trace_bricks_plain(bricks, head(org), head(dirn), tnear)
+    return t, slot
 
 
 # -- kernel B4 on the card ----------------------------------------------------
@@ -500,18 +528,311 @@ def _render_chunk(scene, cam_data, width: int, height: int,
     return out
 
 
+# -- the fixed-capacity wave loop --------------------------------------------
+
+# one block of 32 x 128 slots: the granule a slot map is cut in and the
+# smallest capacity class of the fixed-capacity loop
+BLOCK_SLOTS = 32 * LANES
+# secondary waves a captured group runs between two host reads
+GROUP_WAVES = 4
+# trace engines the fixed-capacity loop runs: kernel B2 (``parse_engine``)
+FIXED_ENGINES = ("slim", "slimg")
+# the wrappers whose launches a graph of the fixed-capacity loop holds: B2,
+# W1, W2, W3
+GRAPH_KERNELS = (trace_bricks_cuda, wave_step.wave_record_cuda,
+                 wave_step.wave_shade_cuda, wave_step.wave_sort_key_cuda)
+
+
+def _classes(capacity: int) -> list:
+    """The capacity classes of a chunk of ``capacity`` camera rays: halvings
+    from it down to BLOCK_SLOTS."""
+    out = [capacity]
+    while out[-1] > BLOCK_SLOTS:
+        out.append(max(BLOCK_SLOTS, -(-out[-1] // 2)))
+    return out
+
+
+def _chunks(n_slots: int, num_samples: int, max_rays: int):
+    """(first slot, slots, first sample, samples) of each chunk of a frame:
+    at most ``max_rays`` slots a wave, whole samples, and a slot map longer
+    than the cap cut in runs of whole 32 x 128-slot blocks."""
+    slice_len = max(n_slots, 1)
+    if n_slots > max_rays:
+        slice_len = max(BLOCK_SLOTS, max_rays // BLOCK_SLOTS * BLOCK_SLOTS)
+    for s0 in range(0, n_slots, slice_len):
+        n = min(slice_len, n_slots - s0)
+        chunk = max(1, max_rays // n)
+        done = 0
+        while done < num_samples:
+            ns = min(chunk, num_samples - done)
+            yield s0, n, done, ns
+            done += ns
+
+
+class _ChunkWaves:
+    """One chunk shape's fixed-capacity wave loop: the kept (pixel, sample)
+    columns of its C camera rays, the camera and first sample it reads, a
+    ray table of C columns (``carry``) with its keys, the control block
+    (ops/wave_step.py), the radiance buffer and the scene's constants, all
+    on the card at fixed addresses; on a card, CUDA graphs of the primary
+    wave and of a group of GROUP_WAVES secondary waves at each capacity
+    class (``_classes``), captured when the chunk is built.
+
+    A wave of c columns (the primary wave's table, or the carried table
+    sorted by its keys) is traced, recorded and shaded over its first
+    ``COUNT`` columns into ``carry``; W3 keys them (INT32_MAX past the
+    count) and sums the next wave's live count; the tally moves the counts
+    on.  A group's class is the smallest one that holds the columns the
+    last wave wrote, so one stable sort of that many keys puts every live
+    ray ahead of the rest in the live-prefix loop's order, and the images
+    are that loop's bit for bit.  The host reads the control block once a
+    group, to pick the next class and to end the loop.
+
+    A capture launches nothing: the launches that GRAPH_KERNELS' wrappers
+    count while a graph is captured become that graph's own (``launches``,
+    {graph: [B2, W1, W2, W3]}), and each replay adds them to the wrappers'
+    ``launches``, waves after the live count reached zero included.
+    ``replays`` counts the replays of the primary wave and of groups."""
+
+    def __init__(self, slots, num_samples: int, scene, cam_data, width: int,
+                 height: int, seed: int, max_depth: int, rr_start_depth: int,
+                 sort_mode: str, lo, hi, pool=None):
+        dev = cam_data.device
+        R = width * height
+        pix = slots.repeat(num_samples)
+        samp = torch.arange(num_samples,
+                            dtype=torch.int32).repeat_interleave(slots.numel())
+        keep = pix < R                   # padding slots never become rays
+        self.scene, self.width, self.height = scene, width, height
+        self.seed, self.max_depth = seed, max_depth
+        self.rr_start_depth, self.sort_mode = rr_start_depth, sort_mode
+        self.pix = pix[keep].to(dev)
+        self.samp = samp[keep].to(dev)
+        self.capacity = C = int(self.pix.numel())
+        self.classes = _classes(C)
+        self.cam = cam_data.clone()
+        self.first_sample = torch.zeros(1, dtype=torch.int32, device=dev)
+        self.ctl = wave_step.new_control(dev)
+        self.ctl_start = wave_step.new_control(dev)
+        self.ctl_start[wave_step.COUNT] = C
+        self.carry = torch.zeros((wave_step.TABLE_ROWS, C),
+                                 dtype=torch.float32, device=dev)
+        self.key = torch.empty(C, dtype=torch.int32, device=dev)
+        self.out = torch.zeros((num_samples, R, 3), dtype=torch.float32,
+                               device=dev)
+        self.bg = torch.stack([scene.bg_r, scene.bg_g,
+                               scene.bg_b]).to(torch.float32)
+        self.lo = lo.to(torch.float32).contiguous()
+        self.inv_extent = 1.0 / torch.clamp_min(hi - lo, 1e-12)
+        self.coarse = getattr(scene, "coarse_boxes", None)
+        self.graphs = None
+        self.launches = {}
+        self.replays = {"primary": 0, "group": 0}
+        if dev.type == "cuda" and C:
+            self._capture(pool)
+
+    def _wave(self, table: torch.Tensor, tnear: float) -> None:
+        c = int(table.shape[1])
+        org = wave_step.rows3(table, wave_step.ORG)
+        dirn = wave_step.rows3(table, wave_step.DIR)
+        t, slot = trace_wave_counted(self.scene, org, dirn, tnear, self.ctl)
+        rec = wave_step.record_counted(self.scene, t, slot, org, dirn, tnear,
+                                       self.ctl)
+        carry = self.carry[:, :c]
+        wave_step.shade_counted(table, carry, rec, self.ctl, self.bg,
+                                self.rr_start_depth, self.max_depth, self.out)
+        wave_step.key_counted(carry, self.sort_mode, self.lo, self.inv_extent,
+                              self.coarse, self.ctl, self.key[:c])
+        wave_step.tally(self.ctl)
+
+    def _primary(self) -> None:
+        """The camera rays of ``cam`` from sample ``first_sample`` on, and
+        their wave (depth 0)."""
+        self.ctl.copy_(self.ctl_start)
+        self.out.zero_()
+        # the sample index modulo 2^32 as int32 bits, as _sample_index
+        state = rng.seed_rays(self.pix, self.samp + self.first_sample,
+                              self.seed)
+        state, u1 = rng.next_uniform(state)
+        state, u2 = rng.next_uniform(state)
+        i = (self.pix % self.width).to(torch.float32)
+        j = (self.pix // self.width).to(torch.float32)
+        org, dirn = generate_primary_rays(self.cam, (i + u1) / self.width,
+                                          (j + u2) / self.height)
+        self._wave(wave_step.make_table(org, dirn, state, self.pix,
+                                        self.samp), 0.0)
+
+    def _group(self, c: int) -> None:
+        """GROUP_WAVES secondary waves at capacity class ``c``."""
+        for _ in range(GROUP_WAVES):
+            perm = torch.sort(self.key[:c], stable=True).indices
+            self._wave(self.carry[:, :c].index_select(1, perm),
+                       SECONDARY_TNEAR)
+
+    def _capture(self, pool) -> None:
+        """Run every step once on a side stream (kernel libraries, lazy
+        module loads, the sort's scratch), then capture the primary wave
+        and each class's group into CUDA graphs sharing ``pool``.  Every
+        tensor a graph hands to another is one of the fixed buffers above,
+        so the graphs may replay in any order."""
+        dev = self.carry.device
+        fns = {"primary": self._primary}
+        fns.update({c: functools.partial(self._group, c)
+                    for c in self.classes})
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        graphs = {}
+        with torch.cuda.device(dev), torch.cuda.stream(side):
+            for fn in fns.values():
+                fn()
+            for name, fn in fns.items():
+                before = [w.launches for w in GRAPH_KERNELS]
+                graph = torch.cuda.CUDAGraph()
+                graph.capture_begin(pool=pool,
+                                    capture_error_mode="thread_local")
+                try:
+                    fn()
+                finally:
+                    graph.capture_end()
+                graphs[name] = graph
+                self.launches[name] = [w.launches - b for w, b in
+                                       zip(GRAPH_KERNELS, before)]
+                for w, b in zip(GRAPH_KERNELS, before):
+                    w.launches = b
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.graphs = graphs
+
+    def _run(self, name) -> None:
+        """Replay graph ``name`` ("primary" or a class), or on the CPU run
+        its steps."""
+        with span("wavefront.replay"):
+            if self.graphs is not None:
+                self.graphs[name].replay()
+                for w, n in zip(GRAPH_KERNELS, self.launches[name]):
+                    w.launches += n
+                self.replays["primary" if name == "primary" else "group"] += 1
+            elif name == "primary":
+                self._primary()
+            else:
+                self._group(name)
+
+    def render(self, cam_data: torch.Tensor, sample_start: int,
+               stats: dict) -> torch.Tensor:
+        """Radiance [num_samples, H*W, 3] of samples sample_start .. +
+        num_samples, each (sample, pixel) written once; adds the waves and
+        rays traced to ``stats`` and the port's counters."""
+        if not self.capacity:
+            return self.out
+        with span("frame.rays"):
+            self.cam.copy_(cam_data)
+            self.first_sample.fill_(rng._as_i32(sample_start))
+        self._run("primary")
+        while True:
+            with span("frame.read"):
+                ctl = self.ctl.tolist()
+            if not ctl[wave_step.COUNT]:
+                break
+            valid = ctl[wave_step.VALID]
+            self._run(min(c for c in self.classes if c >= valid))
+        waves, rays = ctl[wave_step.WAVES], ctl[wave_step.RAYS]
+        stats["waves"] = stats.get("waves", 0) + waves
+        stats["rays"] = stats.get("rays", 0) + rays
+        count("waves", waves)
+        count("rays", rays)
+        if self.graphs is not None:
+            count("graph_waves", waves)
+        return self.out
+
+
+class WaveCache:
+    """The static state of the fixed-capacity wave loop (``_ChunkWaves``,
+    one a chunk shape), kept on the card from frame to frame by the caller
+    that owns the scene: ``ProgressiveRenderer`` passes its own to
+    ``render_samples_wavefront``.  It holds one frame key, the scene, the
+    frame's size, its slot map, its samples, the seed, the depths and the
+    sort mode; a frame with another key (a new scene or resolution,
+    ``set_samples_per_frame``) drops every chunk and builds anew.  A camera
+    move only rewrites a chunk's camera tensor in place."""
+
+    def __init__(self):
+        self._key = None
+        self._slots = None
+        self._chunks = {}
+        self._pool = None
+
+    def begin(self, scene, width: int, height: int, pix_slots,
+              num_samples: int, seed: int, max_depth: int,
+              rr_start_depth: int, sort_mode: str) -> torch.Tensor:
+        """Start a frame: keep the chunks if its key is the last one's,
+        else drop them.  Returns the frame's slot map, int32 on the CPU."""
+        if pix_slots is not None:
+            pix_slots = torch.as_tensor(pix_slots)
+            if pix_slots.device.type != "cpu":
+                with span("frame.read"):
+                    pix_slots = pix_slots.cpu()
+            pix_slots = pix_slots.to(torch.int32)
+        key = (width, height, num_samples, seed, max_depth, rr_start_depth,
+               sort_mode)
+        if not self._same(scene, key, pix_slots):
+            self._key = (scene, key, pix_slots)
+            self._chunks = {}
+            self._pool = None
+            self._slots = (pix_slots if pix_slots is not None else
+                           torch.from_numpy(_wave_layout(width, height)[0]))
+        return self._slots
+
+    def _same(self, scene, key: tuple, pix_slots) -> bool:
+        if self._key is None:
+            return False
+        old_scene, old_key, old_slots = self._key
+        if old_scene is not scene or old_key != key:
+            return False
+        if pix_slots is None or old_slots is None:
+            return pix_slots is old_slots
+        return torch.equal(pix_slots, old_slots)
+
+    def replays(self) -> dict:
+        """{"primary": n, "group": m}: the graphs replayed by the chunks
+        built since the frame key last changed."""
+        return {kind: sum(c.replays[kind] for c in self._chunks.values())
+                for kind in ("primary", "group")}
+
+    def chunk(self, slots, s0: int, num_samples: int, *args) -> _ChunkWaves:
+        """The chunk of ``slots`` (from slot ``s0`` of the slot map ``begin``
+        returned) and ``num_samples`` samples, built (and on a card
+        captured) at its first use from ``_ChunkWaves``' other arguments
+        ``args``."""
+        name = (s0, int(slots.numel()), num_samples)
+        if name not in self._chunks:
+            scene, cam_data = args[:2]
+            if self._pool is None and cam_data.device.type == "cuda":
+                self._pool = torch.cuda.graph_pool_handle()
+            self._chunks[name] = _ChunkWaves(slots, num_samples, *args,
+                                             pool=self._pool)
+        return self._chunks[name]
+
+
 def render_waves(scene, cam_data: torch.Tensor, width: int, height: int,
                  sample_start: int, num_samples: int, seed: int,
                  max_depth: int, rr_start_depth: int, sort_mode: str,
                  nee: bool, lo, hi, tracer, record, stats=None,
                  max_rays: int = MAX_RAYS_PER_WAVE, pix_slots=None,
                  num_real=None, compact_tail: int = 8, tail_trace: str = "",
-                 steps: WaveSteps = STEPS) -> torch.Tensor:
+                 steps: WaveSteps = STEPS,
+                 cache: WaveCache | None = None) -> torch.Tensor:
     """The wave loop under ``render_samples_wavefront`` and the experiments'
     ``render_samples_mx`` / ``render_samples_mx2``: the radiance SUM of
     ``num_samples`` passes, [H, W, 3], over a scene whose box is ``lo`` ..
     ``hi`` (the sort keys' normalization), traced by ``tracer`` and recorded
     by ``record`` (see ``_render_chunk``).
+
+    With a ``cache`` (``WaveCache``) it runs the fixed-capacity loop
+    instead (``_ChunkWaves``): kernel B2 and ``steps`` = ``STEPS`` on a
+    brick set without NEE's shadow waves, whatever ``tracer``, ``record``,
+    ``steps`` and the ladder's knobs say, the same image bit for bit, with
+    no host read inside a group of waves, and on a card each group
+    replayed from a CUDA graph.  ``render_samples_wavefront`` passes one on
+    a card where those hold.
 
     A wave's rays are one ray table (ops/wave_step.py).  After the trace,
     ``steps`` (default ``wave_step.STEPS``: kernels W1-W3 on a card, their
@@ -546,6 +867,8 @@ def render_waves(scene, cam_data: torch.Tensor, width: int, height: int,
     32 x 128-slot blocks, whose images add (each pixel lies in one slice).
     ``stats``, a dict, gets the count of traced
     waves ("waves") and rays ("rays") added to it."""
+    if cache is not None and nee and int(scene.light_pos.shape[0]) > 0:
+        raise ValueError("the fixed-capacity wave loop has no shadow waves")
     if sort_mode not in SORT_MODES:
         raise ValueError(f"unknown sort_mode {sort_mode!r}")
     if sort_mode == "sig_mort" and not hasattr(scene, "coarse_boxes"):
@@ -561,46 +884,47 @@ def render_waves(scene, cam_data: torch.Tensor, width: int, height: int,
     if scene.device != dev:
         raise ValueError(f"scene on {scene.device}, camera on {dev}")
     stats = {} if stats is None else stats
-    with span("frame.layout"):
-        light_rows = None
-        if nee and int(scene.light_pos.shape[0]) > 0:
-            light_rows = torch.cat([scene.light_pos, scene.light_intensity],
-                                   dim=1)
-        bg = torch.stack([scene.bg_r, scene.bg_g,
-                          scene.bg_b]).to(torch.float32)
-        lo = lo.to(torch.float32).contiguous()
-        inv_extent = 1.0 / torch.clamp_min(hi - lo, 1e-12)
-        if pix_slots is None:
-            pix_slots = torch.from_numpy(_wave_layout(width, height)[0])
-        pix_slots = torch.as_tensor(pix_slots)
-        # an upload from host memory waits for the card's queue
-        with span("frame.read") if pix_slots.device != dev else NOOP:
-            pix_slots = pix_slots.to(dtype=torch.int32, device=dev)
-        acc = torch.zeros((height, width, 3), dtype=torch.float32,
-                          device=dev)
-    n_slots = int(pix_slots.numel())
     if num_real is not None:
         num_samples = max(0, min(num_real, num_samples))
-    gran = 32 * LANES
-    slice_len = max(n_slots, 1)
-    if n_slots > max_rays:
-        slice_len = max(gran, max_rays // gran * gran)
+    with span("frame.layout"):
+        if cache is not None:
+            pix_slots = cache.begin(scene, width, height, pix_slots,
+                                    num_samples, seed, max_depth,
+                                    rr_start_depth, sort_mode)
+        else:
+            light_rows = None
+            if nee and int(scene.light_pos.shape[0]) > 0:
+                light_rows = torch.cat([scene.light_pos,
+                                        scene.light_intensity], dim=1)
+            bg = torch.stack([scene.bg_r, scene.bg_g,
+                              scene.bg_b]).to(torch.float32)
+            lo = lo.to(torch.float32).contiguous()
+            inv_extent = 1.0 / torch.clamp_min(hi - lo, 1e-12)
+            if pix_slots is None:
+                pix_slots = torch.from_numpy(_wave_layout(width, height)[0])
+            pix_slots = torch.as_tensor(pix_slots)
+            # an upload from host memory waits for the card's queue
+            with span("frame.read") if pix_slots.device != dev else NOOP:
+                pix_slots = pix_slots.to(dtype=torch.int32, device=dev)
+        acc = torch.zeros((height, width, 3), dtype=torch.float32,
+                          device=dev)
 
-    for s0 in range(0, n_slots, slice_len):
-        slots = pix_slots[s0:s0 + slice_len]
-        chunk = max(1, max_rays // int(slots.numel()))
-        done = 0
-        while done < num_samples:
-            ns = min(chunk, num_samples - done)
+    for s0, n, done, ns in _chunks(int(pix_slots.numel()), num_samples,
+                                   max_rays):
+        if cache is not None:
+            out = cache.chunk(
+                pix_slots[s0:s0 + n], s0, ns, scene, cam_data, width, height,
+                seed, max_depth, rr_start_depth, sort_mode, lo, hi,
+            ).render(cam_data, sample_start + done, stats)
+        else:
             out = _render_chunk(
-                scene, cam_data, width, height, slots, sample_start + done,
-                ns, seed, max_depth, rr_start_depth, sort_mode, light_rows,
-                bg, lo, inv_extent,
+                scene, cam_data, width, height, pix_slots[s0:s0 + n],
+                sample_start + done, ns, seed, max_depth, rr_start_depth,
+                sort_mode, light_rows, bg, lo, inv_extent,
                 lambda depth: tail if ladder and depth >= 2 else tracer,
                 record, steps, stats)
-            with span("frame.sum"):
-                acc += out.sum(dim=0).reshape(height, width, 3)
-            done += ns
+        with span("frame.sum"):
+            acc += out.sum(dim=0).reshape(height, width, 3)
     return acc
 
 
@@ -614,7 +938,9 @@ def render_samples_wavefront(brickset: BrickSet, cam_data: torch.Tensor,
                              stats=None, pix_slots=None,
                              num_real=None, compact_tail: int = 8,
                              tail_trace: str = "",
-                             steps: WaveSteps = STEPS) -> torch.Tensor:
+                             steps: WaveSteps = STEPS,
+                             wave_cache: WaveCache | None = None
+                             ) -> torch.Tensor:
     """Large-scene drop-in for ops.integrator.render_samples: the radiance
     SUM of ``num_samples`` passes, [H, W, 3], on ``cam_data``'s device.
 
@@ -630,13 +956,29 @@ def render_samples_wavefront(brickset: BrickSet, cam_data: torch.Tensor,
     versions to hold the kernels to them).  ``stats``, a dict, gets the
     count of traced waves ("waves") and rays ("rays") added to it.
     ``pix_slots`` and ``num_real`` pick the slots and the passes that count
-    (see ``render_waves``)."""
+    (see ``render_waves``).
+
+    On a card, with kernel B2 the engine of every wave (``trace`` and
+    ``tail_trace`` "slim[N]" or "slimg[N]", ``tail_trace`` also "", no
+    ``tracer``), the bounce step's kernels (``steps`` ``STEPS``) and no
+    light sampled, the waves run in the fixed-capacity loop
+    (``render_waves``' ``cache``), the same image bit for bit: its static
+    state is ``wave_cache``, which a caller that renders frame after frame
+    keeps (``ProgressiveRenderer`` does).  A call without one runs the
+    live-prefix loop, which builds nothing to keep."""
     engine = engine_tracer(trace)
     # scene box = the top tree's root node
     root = brickset.top_boxes[0, :6]
+    fixed = (wave_cache is not None and cam_data.device.type == "cuda"
+             and tracer is None and steps is STEPS
+             and parse_engine(trace)[0] in FIXED_ENGINES
+             and (not tail_trace
+                  or parse_engine(tail_trace)[0] in FIXED_ENGINES)
+             and not (nee and int(brickset.light_pos.shape[0]) > 0))
+    cache = wave_cache if fixed else None
     return render_waves(brickset, cam_data, width, height, sample_start,
                         num_samples, seed, max_depth, rr_start_depth,
                         sort_mode, nee, root[:3], root[3:], tracer or engine,
                         steps.record, stats, pix_slots=pix_slots,
                         num_real=num_real, compact_tail=compact_tail,
-                        tail_trace=tail_trace, steps=steps)
+                        tail_trace=tail_trace, steps=steps, cache=cache)

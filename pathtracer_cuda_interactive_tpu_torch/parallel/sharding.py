@@ -47,7 +47,8 @@ from ..experiments.mxtrace import render_samples_mx
 from ..ops.brickkernel import render_tiles_bricks, tile_grid
 from ..ops.integrator import MAX_DEPTH, RR_START_DEPTH, render_pixel_sums
 from ..ops.megakernel import render_pixels_megakernel
-from ..ops.wavefront import WAVE_ROWS, _wave_layout, render_samples_wavefront
+from ..ops.wavefront import (WAVE_ROWS, WaveCache, _wave_layout,
+                             render_samples_wavefront)
 
 TILE_AXIS = "tiles"
 SAMPLE_AXIS = "samples"
@@ -187,7 +188,9 @@ def render_samples_sharded(scene, cam_data: torch.Tensor, width: int,
                            rr_start_depth: int = RR_START_DEPTH,
                            sort_mode=None, nee: bool = False,
                            trace: str = "slim", compact_tail: int = 8,
-                           tail_trace: str = "") -> torch.Tensor:
+                           tail_trace: str = "",
+                           wave_cache: WaveCache | None = None
+                           ) -> torch.Tensor:
     """The [H, W, 3] radiance sum of EXACTLY ``num_samples`` passes from
     ``sample_start``, computed across the mesh; every rank returns the
     whole image, on ``cam_data``'s device.
@@ -209,7 +212,9 @@ def render_samples_sharded(scene, cam_data: torch.Tensor, width: int,
     ("sig_mort" for the wavefront, "mort_oct" for "mx" and "mx2", whose sets
     have no signature boxes; there "sig_mort" also sorts by "mort_oct", as
     the JAX package's "mx" paths do).  CUDA tensors launch the kernels, CPU
-    tensors run their plain versions."""
+    tensors run their plain versions.  ``wave_cache`` is the wavefront's
+    static state on the card (``render_samples_wavefront``), which a caller
+    that renders frame after frame keeps, one a rank."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; one of {MODES}")
     if mode == "bricks" and nee:
@@ -228,7 +233,7 @@ def render_samples_sharded(scene, cam_data: torch.Tensor, width: int,
                                     local_start, ns_local, num_real, seed,
                                     max_depth, mode, rr_start_depth,
                                     sort_mode, nee, trace, slots,
-                                    compact_tail, tail_trace)
+                                    compact_tail, tail_trace, wave_cache)
     elif mode == "megakernel":
         pix0, count = _split(R, mesh)
         if count and num_real:
@@ -258,14 +263,15 @@ def render_samples_sharded(scene, cam_data: torch.Tensor, width: int,
 def _render_wave_mode(scene, cam_data, width, height, local_start, ns_local,
                       num_real, seed, max_depth, mode, rr_start_depth,
                       sort_mode, nee, trace, slots, compact_tail,
-                      tail_trace):
+                      tail_trace, wave_cache):
     """One rank's part of a wave path: its slots, its passes."""
     common = dict(pix_slots=slots, num_real=num_real)
     if mode == "wavefront":
         return render_samples_wavefront(
             scene, cam_data, width, height, local_start, ns_local, seed,
             max_depth, rr_start_depth, sort_mode or "sig_mort", nee, trace,
-            compact_tail=compact_tail, tail_trace=tail_trace, **common)
+            compact_tail=compact_tail, tail_trace=tail_trace,
+            wave_cache=wave_cache, **common)
     sort_mode = "mort_oct" if sort_mode in (None, "sig_mort") else sort_mode
     render = render_samples_mx if mode == "mx" else render_samples_mx2
     return render(scene, cam_data, width, height, local_start, ns_local,
@@ -314,16 +320,18 @@ def scaling_report(scene, cam_data: torch.Tensor, mesh: Mesh,
     local = make_mesh(world_size=1, device=cam_data.device)
 
     def seconds(m, ns, h=height):
-        """Seconds per render after one warm-up; a shard's rows render
-        through the frame's camera (the same work, a squeezed view)."""
+        """Seconds per render after one warm-up (which builds the
+        wavefront's static state); a shard's rows render through the
+        frame's camera (the same work, a squeezed view)."""
+        kw = dict(render_kwargs, mode=mode, wave_cache=WaveCache())
         out = render_samples_sharded(scene, cam_data, width, h, 0, ns, m,
-                                     mode=mode, **render_kwargs)
+                                     **kw)
         _sync(out)
         t0 = time.perf_counter()
         acc = None
         for k in range(repeats):
             out = render_samples_sharded(scene, cam_data, width, h, k + 1,
-                                         ns, m, mode=mode, **render_kwargs)
+                                         ns, m, **kw)
             acc = out if acc is None else acc + out
         _sync(acc)
         return (time.perf_counter() - t0) / repeats

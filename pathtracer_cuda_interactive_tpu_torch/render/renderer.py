@@ -42,7 +42,7 @@ from ..ops import integrator
 from ..ops.brickkernel import render_samples_bricks
 from ..ops.camera import Camera, camera_ray_data
 from ..ops.megakernel import MEGAKERNEL_MAX_PRIMS, render_samples_megakernel
-from ..ops.wavefront import parse_engine, render_samples_wavefront
+from ..ops.wavefront import WaveCache, parse_engine, render_samples_wavefront
 from ..utils import image as img_util
 from ..utils.config import RenderConfig
 from ..utils.trace import setup_span, span
@@ -149,6 +149,9 @@ class ProgressiveRenderer:
             self.scene.walk_table()
         self.sample_count = 0
         self.frame_ms = 0.0
+        # the wavefront's static frame state on the card (slot map, ray
+        # table, captured graphs), rebuilt when its key changes
+        self._wave_cache = WaveCache()
 
     @classmethod
     def from_xml(cls, xml_path: str,
@@ -219,7 +222,8 @@ class ProgressiveRenderer:
                 cfg.rr_start_depth, nee=cfg.enable_nee,
                 trace=cfg.wavefront_trace, stats=self.stats,
                 compact_tail=cfg.wavefront_compact_tail,
-                tail_trace=cfg.wavefront_tail_trace)
+                tail_trace=cfg.wavefront_tail_trace,
+                wave_cache=self._wave_cache)
         elif self.mode in ("mx", "mx2"):
             render = render_samples_mx if self.mode == "mx" \
                 else render_samples_mx2

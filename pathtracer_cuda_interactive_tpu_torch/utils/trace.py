@@ -16,15 +16,19 @@ can be put down to the span open at that moment.  The spans of a frame:
 * ``frame.accumulate``: ``accum += new``, once a step;
 * ``frame.read``: each wait of the host on the card — the live count a
   wave, the padding mask's two gathers, the shadow waves' ``nonzero``, a
-  blocking upload of the slot map; the one ``frame.*`` span that opens
+  blocking upload of the slot map; in the fixed-capacity loop the control
+  block once a group of waves; the one ``frame.*`` span that opens
   inside another;
 
 beside the wave loop's ``wavefront.sort``, ``.trace``, ``.shade`` and
-``.count`` (ops/wavefront.py).  While a profiler records, every span also
+``.count`` (ops/wavefront.py), and in its fixed-capacity loop
+``wavefront.replay``, the host side of each graph's replay (or, on the
+CPU, of running its steps).  While a profiler records, every span also
 adds its count and host seconds to a total by name (``totals()``), and
 ``count(name, n)`` adds to a counter by name (``counts()``: "waves" and
-"rays" from the wave loop): one entry a name, so a long viewer run grows
-nothing, and nothing at all while no profiler records.
+"rays" from the wave loop, "graph_waves" the waves run inside a graph's
+replay): one entry a name, so a long viewer run grows nothing, and
+nothing at all while no profiler records.
 
 ``setup_span(name)`` is such a span that also adds its seconds, profiler
 or not, to the process's set-up record by name (``setup_seconds()``):
