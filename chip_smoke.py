@@ -63,13 +63,21 @@ JAX, and fails with a non-zero exit code if any phase fails:
 3j. the main path's fixed-capacity wave loop (ops/wavefront.py::WaveCache,
    the wavefront's defaults at 640x480, 2 samples, depth 50): two frames,
    the first capturing its CUDA graphs and the second replaying them
-   alone, each image and its waves and rays equal bit for bit to 3i's
-   frame through the live-prefix loop, each graph holding one launch of
-   B2, W1, W2 and W3 a wave; then B2 and W1-W3 in their counted form (a
-   device-side live count, ``ctl``) on the sorted first-bounce wave and
+   alone, the drain engaged in each, each image and its waves and rays
+   equal bit for bit to 3i's frame through the live-prefix loop, each
+   graph holding one launch of B2, W1, W2 and W3 a wave and the drain's
+   graph one launch of the drain; then B2 and W1-W3 in their counted form
+   (a device-side live count, ``ctl``) on the sorted first-bounce wave and
    on the first wave with fewer rays than the chunk, each laid in its
    capacity class: the live columns bit for bit the plain launch's, W3's
    keys past them INT32_MAX, each timed beside the plain launch;
+3k. the drain (csrc/wave_step.cu::wave_drain) on the carried table of
+   that frame at the first host read whose live count is at most the
+   card's threshold: the radiance and the control block bit for bit
+   ``drain_plain`` through the wave's own kernels (B2, W1, W2, level by
+   level), the fully plain ``drain_plain`` within W2's criterion (rtol
+   1e-4) on all but 1e-3 of the drained paths; the kernel timed by CUDA
+   events beside its bound and the plain version's time;
 3e. kernel B4 (B2's walk with the deferred leaf, engine "slim2") on the
    four waves of 3b: t and slot equal to its plain version over the walk
    table and to kernel B2 bit for bit; whole wavefront renders at 160x120
@@ -110,8 +118,10 @@ JAX, and fails with a non-zero exit code if any phase fails:
    version of the bounce step made to raise (the fixed-capacity loop, its
    graphs captured in warmup), B2's, W1's, W2's and W3's launches over
    the timed frames each one a primary graph replayed and GROUP_WAVES a
-   group, the waves traced no more than that and at most GROUP_WAVES - 1
-   fewer a frame, a camera reset, a finite non-flat image and a PNG;
+   group, the drain's one a drain replayed, the waves traced outside the
+   drain no more than the first and at most GROUP_WAVES - 1 fewer a frame
+   that did not drain, a camera reset, a finite non-flat image and a
+   PNG;
 4c. the large scene's "bricks" path in the same call:
    ProgressiveRenderer with RenderConfig(large_scene_mode="bricks") at the
    same shape — 10 synced frames after warmup, one B6 launch per frame and
@@ -1977,22 +1987,37 @@ def main(argv=None) -> int:
     K = wf.GROUP_WAVES
     per_graph = {str(name): n for c in chunks
                  for name, n in c.launches.items()}
-    held = all(n == [1 if name == "primary" else K] * 4
+
+    def graph_holds(name):
+        """[B2, W1, W2, W3, drain] launches of graph ``name``."""
+        if name == "drain":
+            return [0, 0, 0, 0, 1]
+        return [1 if name == "primary" else K] * 4 + [0]
+
+    held = all(n == graph_holds(name)
                for c in chunks for name, n in c.launches.items())
+    drained = wave_cache.drained()
     print(f"fixed-capacity loop {MAIN_W}x{MAIN_H} spf {SPP} depth 50: "
           f"{len(chunks)} chunk(s) of {[c.capacity for c in chunks]} rays, "
-          f"classes {[c.classes for c in chunks]}; frames (capture, "
-          f"replay) equal to the live-prefix frame bit for bit "
+          f"classes {[c.classes for c in chunks]}, drain at or under "
+          f"{[c.drain_limit for c in chunks]} live rays "
+          f"({[c.drain_lanes for c in chunks]} resident lanes); frames "
+          f"(capture, replay) equal to the live-prefix frame bit for bit "
           f"{[f['equal'] for f in graph_frames]}, waves and rays "
           f"{[f['stats'] for f in graph_frames]} against {ref_stats}, "
-          f"replays {graph_frames[-1]['replays']}; launches a graph "
-          f"[B2, W1, W2, W3] {per_graph}")
+          f"replays {graph_frames[-1]['replays']}, the drains' waves and "
+          f"rays {drained}; launches a graph [B2, W1, W2, W3, drain] "
+          f"{per_graph}")
+    replays = graph_frames[-1]["replays"]
     if not (all(f["equal"] and f["stats"] == ref_stats
                 for f in graph_frames) and held
-            and graph_frames[-1]["replays"]["primary"] == 2 * len(chunks)):
+            and replays["primary"] == 2 * len(chunks)
+            and replays["drain"] == 2 * len(chunks)
+            and drained["rays"] > 0):
         raise SystemExit("chip_smoke: the fixed-capacity loop's frame is "
-                         "not the live-prefix loop's, or its graphs do not "
-                         "hold one launch of B2, W1, W2 and W3 a wave")
+                         "not the live-prefix loop's, its graphs do not "
+                         "hold one launch of B2, W1, W2 and W3 a wave and "
+                         "the drain's one of the drain, or no frame drained")
 
     def counted_form(wave):
         """B2 and W1-W3 on wave ``wave`` of 3i's frame, its n rays laid in
@@ -2089,7 +2114,95 @@ def main(argv=None) -> int:
                              f"differs from the plain one: {same}")
     results.update(graph_frames=graph_frames, graph_launches=per_graph,
                    counted=counted)
-    del w_logs, wave_cache
+
+    stamp("3j done")
+    # -- 3k. the drain on the carried table of 3j's frame at the first read
+    # at or under the card's threshold, against drain_plain
+    chunk = chunks[0]
+    chunk.cam.copy_(cd)
+    chunk.first_sample.zero_()
+    chunk._primary()
+    while int(chunk.ctl[ws.COUNT]) > chunk.drain_limit:
+        valid = int(chunk.ctl[ws.VALID])
+        chunk._group(min(c for c in chunk.classes if c >= valid))
+    torch.cuda.synchronize()
+    at_read = (chunk.carry.clone(), chunk.ctl.clone(), chunk.out.clone())
+    read_ctl = at_read[1].tolist()
+    drain_args = (big, chunk.carry, chunk.ctl, chunk.bg, chunk.rr_start_depth,
+                  chunk.max_depth, chunk.out)
+
+    def from_read(**kw):
+        """``drain_plain`` (``kw`` its trace and steps) from the read on
+        copies: (out, control block)."""
+        out, ctl = at_read[2].clone(), at_read[1].clone()
+        ws.drain_plain(big, at_read[0].clone(), ctl, chunk.bg,
+                       chunk.rr_start_depth, chunk.max_depth, out, **kw)
+        return out, ctl
+
+    chunk.ctl.copy_(at_read[1])
+    ws.wave_drain_cuda(*drain_args, chunk.drain_lanes)
+    torch.cuda.synchronize()
+    drain_out, drain_ctl = chunk.out.clone(), chunk.ctl.tolist()
+    ref_out, ref_ctl = from_read(trace=wf.trace_wave_slim, steps=ws.STEPS)
+    drain_same = (torch.equal(drain_out.view(torch.int32),
+                              ref_out.view(torch.int32))
+                  and drain_ctl == ref_ctl.tolist())
+    t0 = time.perf_counter()
+    plain_out, plain_ctl = from_read()
+    torch.cuda.synchronize()
+    drain_plain_ms = (time.perf_counter() - t0) * 1e3
+    # the paths the drain ended: their places in the radiance buffer
+    rows = at_read[0][:, :read_ctl[ws.VALID]]
+    rows = rows[:, rows[ws.LIVE] > 0]
+    _, d_pix, d_samp = ws.int_rows(rows)
+    at = lambda o: o[d_samp.long(), d_pix.long()]
+    plain_share = float((~torch.isclose(at(drain_out), at(plain_out),
+                                        rtol=1e-4, atol=1e-6).all(1))
+                        .float().mean())
+    plain_err = float((at(drain_out) - at(plain_out)).abs().max())
+    drain_times = []
+    for _ in range(20):
+        chunk.ctl.copy_(at_read[1])
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        ws.wave_drain_cuda(*drain_args, chunk.drain_lanes)
+        e1.record()
+        e1.synchronize()
+        drain_times.append(e0.elapsed_time(e1))
+    drain_ms = statistics.median(drain_times)
+    drain_rays = drain_ctl[ws.RAYS] - read_ctl[ws.RAYS]
+    drain_levels = drain_ctl[ws.WAVES] - read_ctl[ws.WAVES]
+    # each drained ray walks as a bounce ray, is recorded and shaded; the
+    # drain reads each live column (64 bytes) and every live flag of the
+    # valid columns, each traced ray's winner record, and writes 12 bytes a
+    # path
+    drain_bound = bound(
+        walk_bytes + min(big.brick_data.numel() * 4, drain_rays * 128)
+        + read_ctl[ws.COUNT] * (64 + 12) + read_ctl[ws.VALID] * 4,
+        drain_rays * (walk_ops(big_counters["bounce 1"]) + W1_OPS
+                      + big.num_spheres * SPHERE_OPS + W2_OPS))
+    print(f"drain {MAIN_W}x{MAIN_H} spf {SPP} depth 50 from depth "
+          f"{read_ctl[ws.DEPTH]}: {read_ctl[ws.COUNT]} live paths in "
+          f"{read_ctl[ws.VALID]} columns (threshold {chunk.drain_limit}), "
+          f"{drain_rays} rays over {drain_levels} levels; equal to "
+          f"drain_plain through B2, W1 and W2 bit for bit {drain_same}; the "
+          f"plain drain_plain's paths beyond rtol 1e-4 {plain_share:.3e}, "
+          f"largest difference {plain_err:.3e} "
+          f"(rays {plain_ctl[ws.RAYS] - read_ctl[ws.RAYS]}); "
+          f"{drain_ms:.4f} ms (min {min(drain_times):.4f}, max "
+          f"{max(drain_times):.4f}), bound {drain_bound['bound_ms']:.4f} ms, "
+          f"plain {drain_plain_ms:.1f} ms")
+    if not drain_same or plain_share > 1e-3 or drain_rays <= 0:
+        raise SystemExit("chip_smoke: the drain differs from drain_plain")
+    drain_row = {"paths": read_ctl[ws.COUNT], "columns": read_ctl[ws.VALID],
+                 "depth": read_ctl[ws.DEPTH], "rays": drain_rays,
+                 "levels": drain_levels, "ms": drain_ms,
+                 "timings": drain_times, "plain_ms": drain_plain_ms,
+                 "plain_mismatch_share": plain_share,
+                 "max_abs_err": plain_err, **drain_bound}
+    results.update(drain=drain_row)
+    del w_logs, wave_cache, chunk, at_read, drain_args
 
     counters = kernel_wrappers()
 
@@ -2101,7 +2214,7 @@ def main(argv=None) -> int:
         """Launches of W1, W2, W3 and the shadow rays since zero_counts."""
         return [wrapper.launches for wrapper in w_wrappers]
 
-    stamp("3j done")
+    stamp("3k done")
     # -- 4. the main path ---------------------------------------------------
     zero_counts()
     renderer = ProgressiveRenderer.from_xml(
@@ -2184,35 +2297,44 @@ def main(argv=None) -> int:
             big_renderer.step(sync=True)
         # the timed frames' launches, waves and graph replays: the first
         # frame captured the graphs
-        graph_kernels = (wf.trace_bricks_cuda, *w_wrappers)
+        graph_kernels = (wf.trace_bricks_cuda, *w_wrappers,
+                         ws.wave_drain_cuda)
         launches0 = [w.launches for w in graph_kernels]
         waves0 = big_renderer.waves
         replays0 = big_renderer._wave_cache.replays()
+        drained0 = big_renderer._wave_cache.drained()
         big_ms = []
         for _ in range(big_frames):
             big_renderer.step(sync=True)
             big_ms.append(big_renderer.frame_ms)
-    b2_launches, *main_w = (w.launches - n
-                            for w, n in zip(graph_kernels, launches0))
+    b2_launches, *main_w, drain_launches = (
+        w.launches - n for w, n in zip(graph_kernels, launches0))
     w1_launches, w2_launches, w3_launches, _ = main_w
     waves = big_renderer.waves - waves0
-    primary, group = (big_renderer._wave_cache.replays()[k] - replays0[k]
-                      for k in ("primary", "group"))
-    n_chunks = len(big_renderer._wave_cache._chunks)
+    cache = big_renderer._wave_cache
+    primary, group, drains = (cache.replays()[k] - replays0[k]
+                              for k in ("primary", "group", "drain"))
+    drained = {k: v - drained0[k] for k, v in cache.drained().items()}
+    n_chunks = len(cache._chunks)
     # every graph replayed launches B2, W1, W2 and W3 once a wave: once
-    # the primary graph, GROUP_WAVES a group's; the waves traced are those
-    # launches but the dead ones after a chunk's live count reached zero
-    # in its last group; no shadow ray without NEE
+    # the primary graph, GROUP_WAVES a group's, and the drain's graph the
+    # drain once; the waves traced outside the drain are those launches
+    # but the dead ones after a chunk's live count reached zero in its
+    # last group, in a frame that did not drain; no shadow ray without NEE
     launched = primary + wf.GROUP_WAVES * group
+    group_waves = waves - drained["waves"]
     others = [w.launches for w in counters if w is not wf.trace_bricks_cuda]
     if (b2_launches != launched or primary != big_frames * n_chunks
-            or not waves <= launched
-            <= waves + (wf.GROUP_WAVES - 1) * primary
+            or drain_launches != drains
+            or not group_waves <= launched
+            <= group_waves + (wf.GROUP_WAVES - 1) * (primary - drains)
             or waves < big_frames or any(others)):
         raise SystemExit(f"chip_smoke: {b2_launches} B2 launches for "
                          f"{primary} primary and {group} group replays, "
-                         f"{waves} waves, {others} launches of B1, B3, B6, "
-                         f"B4, B5, B7 on the large scene")
+                         f"{drain_launches} drain launches for {drains} "
+                         f"drain replays, {waves} waves ({drained} in the "
+                         f"drain), {others} launches of B1, B3, B6, B4, B5, "
+                         f"B7 on the large scene")
     if main_w != [launched, launched, launched, 0]:
         raise SystemExit(f"chip_smoke: W1, W2, W3 and shadow-ray launches "
                          f"{main_w} for {launched} launches of B2 in "
@@ -2226,8 +2348,9 @@ def main(argv=None) -> int:
           f"{big_msamples * big_path_len:.4f} Mrays/s, "
           f"{waves / big_frames:.2f} waves per frame, avg path "
           f"length {big_path_len:.4f} rays/sample; B2 launches {b2_launches} "
-          f"for {waves} waves ({primary} primary and {group} group graph "
-          f"replays); scene build {scene_build_s:.2f} s, "
+          f"for {waves} waves ({primary} primary, {group} group and "
+          f"{drains} drain graph replays; the drain's {drained}); scene "
+          f"build {scene_build_s:.2f} s, "
           f"brick_data {big.brick_data.numel() * 4} bytes")
     big_img = big_renderer.hdr()
     if not (big_img.shape == (MAIN_H, MAIN_W, 3)
@@ -2257,6 +2380,7 @@ def main(argv=None) -> int:
                    large_waves_per_frame=waves / big_frames,
                    large_avg_path_length=big_path_len,
                    b2_launches=b2_launches, w_launches=main_w,
+                   drain_launches=drain_launches, drained=drained,
                    large_image_mean=float(big_img.mean()))
     del big_renderer
 
@@ -2757,6 +2881,19 @@ def main(argv=None) -> int:
             **w_bound,
             "library_ms": None,
         })
+    # launches: the main path (4b); times: the drain of 3k
+    kernels.append({
+        "name": "wave_drain",
+        "route": "cuda",
+        "source": wave_step_source,
+        "replaces": f"{jax_wavefront}:545 (the waves of the loop's tail)",
+        "launches": drain_launches,
+        "max_abs_err": drain_row["max_abs_err"],
+        "ms": drain_row["ms"],
+        "plain_ms": drain_row["plain_ms"],
+        **drain_bound,
+        "library_ms": None,
+    })
     # launches on the sharded path (4i), in the order of ``counters``
     for entry, n in zip(kernels, sharded["launches"]):
         entry["sharded_launches"] = n

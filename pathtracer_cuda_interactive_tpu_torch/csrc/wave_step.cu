@@ -30,6 +30,12 @@
 //   int32 "mort_oct" or "sig_mort" key, or 0 for "none", and INT32_MAX for a
 //   ray that is no longer live, so that one stable sort orders the next wave
 //   and sinks the ended rays to the tail.  Plain version: sort_key_plain.
+// * wave_drain (the fixed-capacity loop's sparse tail; the JAX package has
+//   none) carries every live path of the carried table to its end in one
+//   launch: each level B2's walk (csrc/brick_walk.cuh) and the same per-ray
+//   code as W1 and W2 (record_hit, shade_hit, write_radiance), so a path
+//   does the arithmetic of the waves it replaces in the same order and the
+//   frame is theirs bit for bit.  Plain version: drain_plain.
 //
 // The ray table (ops/wave_step.py) is float32 [16, n], one contiguous row a
 // column: origin (3), direction (3), throughput (3), radiance (3), the PCG
@@ -43,6 +49,9 @@
 // to it, and wave_tally moves the counts on from one wave to the next.  So
 // no wave needs a host read, and groups of waves replay as CUDA graphs.  A
 // null `ctl` is the live-prefix loop: every column a ray, `depth` as given.
+// Once the live count fits in the lanes the card holds at once, the loop
+// replays the drain instead of the next group: the small waves of the tail
+// cannot fill the card, and each paid a sort, a gather and four launches.
 //
 // What bounds them on the card: bytes.  Each reads and writes a few rows of
 // 4 bytes per ray and does a few hundred operations at most (W3's "sig_mort"
@@ -51,8 +60,11 @@
 // thread a ray, coalesced row reads and writes (ray i at offset i of every
 // row), the sphere table and lights read through the cache as broadcasts, and
 // each kernel in one launch for the whole wave.  W1's gather of the winner's
-// 128-byte record is the one scattered read.  Arithmetic repeats the plain
-// version op for op (--fmad=false, no fast math, IEEE sqrtf and division).
+// 128-byte record is the one scattered read.  The drain is bound as B2 is,
+// by its walks' dependent reads; its lanes stay resident and take the next
+// path when theirs ends, so a warp waits for no other warp's longest path.
+// Arithmetic repeats the plain version op for op (--fmad=false, no fast
+// math, IEEE sqrtf and division).
 
 #include <cstdint>
 
@@ -82,6 +94,11 @@ constexpr int kSigMort = 0, kMortOct = 1, kNone = 2;
 // summed, the columns the last wave wrote, the depth, and the waves and rays
 // traced so far
 constexpr int kCount = 0, kNext = 1, kValid = 2, kDepth = 3, kWaves = 4, kRays = 5;
+// the drain's slots: the next column of the carried table no lane has taken,
+// and the most levels a drained path ran
+constexpr int kCursor = 6, kLevels = 7;
+
+constexpr int kDrainBlock = 128;   // threads per block of the drain, as B2's
 
 // the columns of an n-column table that hold the wave's rays
 __device__ __forceinline__ int live_limit(const long long* ctl, int n) {
@@ -120,18 +137,13 @@ __device__ __forceinline__ V3 light_dir(const float* light, V3 pos, float& dist2
   return scale(d, 1.0f / fmaxf(dist, 1e-20f));
 }
 
-__global__ void __launch_bounds__(kBlock)
-wave_record(const float* __restrict__ ox, const float* __restrict__ oy,
-            const float* __restrict__ oz, const float* __restrict__ dx,
-            const float* __restrict__ dy, const float* __restrict__ dz,
-            const float* __restrict__ t_in, const int* __restrict__ slot_in, int n, float tnear,
-            const float* __restrict__ brick_data, const float* __restrict__ sph_rows, int S,
-            float* __restrict__ out, const long long* __restrict__ ctl) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= live_limit(ctl, n)) return;
-  const V3 org = {ox[i], oy[i], oz[i]};
-  const V3 dir = {dx[i], dy[i], dz[i]};
-  const int slot = slot_in[i];
+// W1's per ray: the 16-channel record of the ray (org, dir) whose trace gave
+// (t, slot), slot -1 on a miss.  The winner's 32-float record by slot (slot
+// 0's on a miss), the Moller-Trumbore re-solve of (u, v), then the S resident
+// spheres folded in by a strict ts < t, so a triangle wins an equal-t tie.
+__device__ __forceinline__ HitRecord record_hit(V3 org, V3 dir, float t, int slot, float tnear,
+                                                const float* brick_data, const float* sph_rows,
+                                                int S) {
   const float* r = slot_row(brick_data, slot > 0 ? slot : 0);
   // _solve_uv: one Moller-Trumbore solve, 0 / 1 where the ray is parallel
   const V3 p0 = load3(r + 1);
@@ -144,7 +156,7 @@ wave_record(const float* __restrict__ ox, const float* __restrict__ oy,
   const float u = dot(tvec, pv) / det_s;
   const V3 qv = cross(tvec, e1);
   const float v = dot(dir, qv) / det_s;
-  HitRecord h = triangle_record(r, slot >= 0 ? t_in[i] : INFINITY, u, v);
+  HitRecord h = triangle_record(r, slot >= 0 ? t : INFINITY, u, v);
   for (int j = 0; j < S; ++j) {
     const float* sr = sph_rows + (size_t)j * kRow;
     float ts;
@@ -152,6 +164,44 @@ wave_record(const float* __restrict__ ox, const float* __restrict__ oy,
       h = sphere_record(sr, org, dir, ts);
     }
   }
+  return h;
+}
+
+// W2's per ray after the light term: the background on a miss (with the four
+// draws _shade makes for every ray), else the bounce of csrc/bounce.cuh and
+// the depth cap.  Returns whether the path goes on.
+__device__ __forceinline__ bool shade_hit(const HitRecord& h, const float* bg, uint32_t& state,
+                                          V3& org, V3& dir, V3& T, V3& L, int depth,
+                                          int rr_start_depth, int max_depth) {
+  if (h.t == INFINITY) {
+    L = add(L, mul(T, load3(bg)));
+    for (int k = 0; k < 4; ++k) next_uniform(state);
+    return false;
+  }
+  return bounce(h, state, org, dir, T, L, depth, rr_start_depth) && depth + 1 < max_depth;
+}
+
+// W2's write of a path that ended: its radiance to its own place out[samp,
+// pix], one address a path (no atomics)
+__device__ __forceinline__ void write_radiance(float* out, int num_pixels, int samp, int pix,
+                                               V3 L) {
+  float* o = out + ((size_t)samp * num_pixels + pix) * 3;
+  o[0] = L.x;
+  o[1] = L.y;
+  o[2] = L.z;
+}
+
+__global__ void __launch_bounds__(kBlock)
+wave_record(const float* __restrict__ ox, const float* __restrict__ oy,
+            const float* __restrict__ oz, const float* __restrict__ dx,
+            const float* __restrict__ dy, const float* __restrict__ dz,
+            const float* __restrict__ t_in, const int* __restrict__ slot_in, int n, float tnear,
+            const float* __restrict__ brick_data, const float* __restrict__ sph_rows, int S,
+            float* __restrict__ out, const long long* __restrict__ ctl) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= live_limit(ctl, n)) return;
+  const HitRecord h = record_hit({ox[i], oy[i], oz[i]}, {dx[i], dy[i], dz[i]}, t_in[i],
+                                 slot_in[i], tnear, brick_data, sph_rows, S);
   const float ch[kRecord] = {h.t,        h.ns.x,     h.ns.y,     h.ns.z,
                              h.pos.x,    h.pos.y,    h.pos.z,    h.mtype,
                              h.albedo.x, h.albedo.y, h.albedo.z, h.mparam,
@@ -221,15 +271,7 @@ wave_shade(const float* __restrict__ table, float* __restrict__ next, size_t nex
     L = add(L, direct);
   }
 
-  bool live;
-  if (h.t == INFINITY) {
-    L = add(L, mul(T, load3(bg)));
-    // _shade draws four uniforms for every ray of the wave
-    for (int k = 0; k < 4; ++k) next_uniform(state);
-    live = false;
-  } else {
-    live = bounce(h, state, org, dir, T, L, depth, rr_start_depth) && depth + 1 < max_depth;
-  }
+  const bool live = shade_hit(h, bg, state, org, dir, T, L, depth, rr_start_depth, max_depth);
 
   const float pix_bits = table[kPix * (size_t)n + i];
   const float samp_bits = table[kSamp * (size_t)n + i];
@@ -241,14 +283,7 @@ wave_shade(const float* __restrict__ table, float* __restrict__ next, size_t nex
   next[kPix * next_stride + i] = pix_bits;
   next[kSamp * next_stride + i] = samp_bits;
   next[kLive * next_stride + i] = live ? 1.0f : 0.0f;
-  if (!live) {
-    const int pix = __float_as_int(pix_bits);
-    const int samp = __float_as_int(samp_bits);
-    float* o = out + ((size_t)samp * num_pixels + pix) * 3;
-    o[0] = L.x;
-    o[1] = L.y;
-    o[2] = L.z;
-  }
+  if (!live) write_radiance(out, num_pixels, __float_as_int(samp_bits), __float_as_int(pix_bits), L);
 }
 
 // ops/wave_step.py::_spread3: the low 10 bits of x, two zero bits after each
@@ -326,6 +361,97 @@ __global__ void wave_tally(long long* __restrict__ ctl) {
   ctl[kDepth] += 1;
 }
 
+// The drain: every live path of the carried table (the first ctl[kValid]
+// columns, rows `stride` floats apart, those with the live flag) carried to
+// its end in one launch, each level B2's walk, W1's record and W2's shading
+// (record_hit, shade_hit), at the depth ctl[kDepth] on, and its radiance
+// written once, as W2 writes it.  A lane whose path ended takes the next
+// untaken column from ctl[kCursor] (a warp takes its lanes' columns with one
+// atomic), so any live count is drained, in any grid.  All 32 lanes of a
+// warp enter each walk together; a lane without a path walks nothing.  The
+// rays traced are added to ctl[kRays] and the most levels a path ran to
+// ctl[kLevels], one atomic each a warp.
+__global__ void __launch_bounds__(kDrainBlock)
+wave_drain(const float* __restrict__ table, size_t stride, WalkTable walk,
+           const float* __restrict__ sph_rows, int S, const float* __restrict__ bg,
+           int rr_start_depth, int max_depth, float* __restrict__ out, int num_pixels,
+           long long* __restrict__ ctl) {
+  const int lane = threadIdx.x % 32;
+  const unsigned long long valid = (unsigned long long)ctl[kValid];
+  const int depth0 = (int)ctl[kDepth];
+  V3 org = {0.0f, 0.0f, 0.0f}, dir = org, T = org, L = org;
+  uint32_t state = 0;
+  int pix = 0, samp = 0, depth = 0, levels = 0;
+  unsigned rays = 0, deepest = 0;
+  bool in_path = false, taken = false;
+  while (true) {
+    // the lanes without a path take the next columns until each holds a
+    // live one or every column is taken
+    unsigned need = __ballot_sync(kFullWarp, !in_path);
+    while (need != 0 && !taken) {
+      const int leader = __ffs(need) - 1;
+      const unsigned count = __popc(need);
+      unsigned long long base = 0;
+      if (lane == leader) {
+        base = atomicAdd((unsigned long long*)(ctl + kCursor), (unsigned long long)count);
+      }
+      base = __shfl_sync(kFullWarp, base, leader);
+      taken = base + count >= valid;
+      if (need >> lane & 1u) {
+        const unsigned long long col = base + __popc(need & ((1u << lane) - 1u));
+        if (col < valid && table[kLive * stride + col] > 0.0f) {
+          org = row3(table, stride, kOrg, (int)col);
+          dir = row3(table, stride, kDir, (int)col);
+          T = row3(table, stride, kThroughput, (int)col);
+          L = row3(table, stride, kRadiance, (int)col);
+          state = __float_as_uint(table[kState * stride + col]);
+          pix = __float_as_int(table[kPix * stride + col]);
+          samp = __float_as_int(table[kSamp * stride + col]);
+          depth = depth0;
+          levels = 0;
+          in_path = true;
+        }
+      }
+      need = __ballot_sync(kFullWarp, !in_path);
+    }
+    if (!__any_sync(kFullWarp, in_path)) break;
+    float t = INFINITY, u, v;
+    int slot = -1;
+    WalkCounts unused;
+    brick_walk<false, false>(walk, in_path, org, dir, kSecondaryTnear, t, slot, u, v, unused);
+    if (!in_path) continue;
+    ++levels;
+    const HitRecord h = record_hit(org, dir, t, slot, kSecondaryTnear, walk.brick_data, sph_rows,
+                                   S);
+    if (!shade_hit(h, bg, state, org, dir, T, L, depth, rr_start_depth, max_depth)) {
+      write_radiance(out, num_pixels, samp, pix, L);
+      rays += levels;
+      deepest = max(deepest, (unsigned)levels);
+      in_path = false;
+    }
+    ++depth;
+  }
+  const unsigned warp_rays = __reduce_add_sync(kFullWarp, rays);
+  const unsigned warp_deepest = __reduce_max_sync(kFullWarp, deepest);
+  if (lane == 0 && warp_rays > 0) {
+    atomicAdd((unsigned long long*)(ctl + kRays), (unsigned long long)warp_rays);
+    atomicMax((unsigned long long*)(ctl + kLevels), (unsigned long long)warp_deepest);
+  }
+}
+
+// one thread after the drain: its levels count as waves and depths, as the
+// live-prefix loop's waves would have; no ray is left and no column holds
+// one; the drain's slots are cleared for the next frame
+__global__ void wave_drain_tally(long long* __restrict__ ctl) {
+  ctl[kWaves] += ctl[kLevels];
+  ctl[kDepth] += ctl[kLevels];
+  ctl[kCount] = 0;
+  ctl[kNext] = 0;
+  ctl[kValid] = 0;
+  ctl[kCursor] = 0;
+  ctl[kLevels] = 0;
+}
+
 int blocks(int n) { return (n + kBlock - 1) / kBlock; }
 
 }  // namespace
@@ -393,4 +519,40 @@ extern "C" int pt_wave_sort_key_launch(const float* ox, const float* oy, const f
 extern "C" int pt_wave_tally_launch(long long* ctl, void* stream) {
   wave_tally<<<1, 1, 0, (cudaStream_t)stream>>>(ctl);
   return (int)cudaGetLastError();
+}
+
+// The drain and its tally on `stream`: `table` the carried table [16, >=
+// ctl[kValid]] with rows `stride` floats apart, `nodes`, `tris`, `gates` and
+// `brick_data` the set's walk table, sub_boxes and bricks as B2 and W1 read
+// them, `sph_rows` its [S, 32] resident spheres, `bg` [3], out
+// [num_samples, num_pixels, 3]; `lanes` threads (a multiple of 128, the
+// card's resident lanes: pt_wave_drain_lanes).  The caller checks that the
+// top tree's depth + 2 is at most kStack.
+extern "C" int pt_wave_drain_launch(const float* table, long long stride, const void* nodes,
+                                    const void* tris, const void* gates,
+                                    const float* brick_data, const float* sph_rows,
+                                    int num_spheres, const float* bg, int rr_start_depth,
+                                    int max_depth, float* out, int num_pixels, long long* ctl,
+                                    int lanes, void* stream) {
+  if (lanes <= 0 || lanes % kDrainBlock != 0) return (int)cudaErrorInvalidValue;
+  const WalkTable walk = {(const float4*)nodes, (const float*)tris, (const float4*)gates,
+                          brick_data};
+  wave_drain<<<lanes / kDrainBlock, kDrainBlock, 0, (cudaStream_t)stream>>>(
+      table, (size_t)stride, walk, sph_rows, num_spheres, bg, rr_start_depth, max_depth, out,
+      num_pixels, ctl);
+  wave_drain_tally<<<1, 1, 0, (cudaStream_t)stream>>>(ctl);
+  return (int)cudaGetLastError();
+}
+
+// The drain's resident lanes on card `device`: its SMs times the drain's
+// blocks a multiprocessor holds at once times the block's threads, into
+// `lanes`.  Returns a CUDA error (0 on success).
+extern "C" int pt_wave_drain_lanes(int device, int* lanes) {
+  int sms = 0, per_sm = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, wave_drain, kDrainBlock, 0);
+  if (err != cudaSuccess) return (int)err;
+  *lanes = sms * per_sm * kDrainBlock;
+  return 0;
 }

@@ -40,10 +40,15 @@ rays in one table of fixed capacity and its counts in an int64 control
 block on the card (``new_control``: the live rays at the head of the
 wave's table, ``COUNT``; the next wave's live count being summed,
 ``NEXT``; the columns the last wave wrote, ``VALID``; the depth; the waves
-and rays traced).  ``record_counted``, ``shade_counted`` and
-``key_counted`` are W1-W3 over the table's first ``COUNT`` columns, read
-on the card, and ``tally`` moves the counts on from one wave to the next,
-so that no wave needs a host read.
+and rays traced; ``CURSOR`` and ``LEVELS`` for the drain).
+``record_counted``, ``shade_counted`` and ``key_counted`` are W1-W3 over
+the table's first ``COUNT`` columns, read on the card, and ``tally`` moves
+the counts on from one wave to the next, so that no wave needs a host read.
+Once the live count is small, ``drain_counted`` carries every live path of
+the carried table to its end at once: the kernel ``wave_drain`` on a card,
+each level B2's walk and W1's and W2's per-ray code, or its plain version
+``drain_plain``, the same trace, record and shade level by level over the
+live columns, unsorted.
 """
 
 from __future__ import annotations
@@ -53,9 +58,10 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from ..models.bricks import BRICK_ROWS, BrickSet
+from ..models.bricks import BRICK_ROWS, STACK_DEPTH, BrickSet
 from . import brdf, cuda_build, rng
-from .brickkernel import slot_rows, triangle_record
+from .brickkernel import (slot_rows, trace_bricks_plain, triangle_record,
+                          walk_pointers)
 from .geometry import intersect_sphere
 from .integrator import SECONDARY_TNEAR
 from .vec import Vec3, cross, dot, max_elem, normalize, where
@@ -69,8 +75,9 @@ ORG, DIR, THROUGHPUT, RADIANCE = 0, 3, 6, 9
 STATE, PIX, SAMP, LIVE = 12, 13, 14, 15
 TABLE_ROWS = 16
 
-# slots of the fixed-capacity loop's control block (csrc/wave_step.cu)
-COUNT, NEXT, VALID, DEPTH, WAVES, RAYS = range(6)
+# slots of the fixed-capacity loop's control block (csrc/wave_step.cu); the
+# drain's: the next column no lane has taken, the most levels a path ran
+COUNT, NEXT, VALID, DEPTH, WAVES, RAYS, CURSOR, LEVELS = range(8)
 CONTROL_SLOTS = 8
 
 SOURCE = cuda_build.CSRC_DIR / "wave_step.cu"
@@ -437,9 +444,17 @@ def load_library() -> ctypes.CDLL:
             ptr, ptr, ptr, i32,             # lo, inv_extent, coarse, K
             ptr, ptr, ptr]                  # out, ctl, stream
         lib.pt_wave_tally_launch.argtypes = [ptr, ptr]  # ctl, stream
+        lib.pt_wave_drain_launch.argtypes = [
+            ptr, ctypes.c_longlong,         # table, stride
+            ptr, ptr, ptr, ptr,             # nodes, tris, gates, brick_data
+            ptr, i32, ptr,                  # sph_rows, S, bg
+            i32, i32, ptr, i32,             # rr_start, max_depth, out, pixels
+            ptr, i32, ptr]                  # ctl, lanes, stream
+        lib.pt_wave_drain_lanes.argtypes = [i32, ctypes.POINTER(i32)]
         for fn in (lib.pt_wave_record_launch, lib.pt_wave_shadow_rays_launch,
                    lib.pt_wave_shade_launch, lib.pt_wave_sort_key_launch,
-                   lib.pt_wave_tally_launch):
+                   lib.pt_wave_tally_launch, lib.pt_wave_drain_launch,
+                   lib.pt_wave_drain_lanes):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -621,6 +636,64 @@ def wave_sort_key_cuda(table: torch.Tensor, mode: str, lo, inv_extent,
 wave_sort_key_cuda.launches = 0
 
 
+def drain_lanes(device) -> int:
+    """The drain's resident lanes on card ``device``: its SMs times the
+    drain's blocks one SM holds at once (by the CUDA occupancy query)
+    times the block's 128 threads."""
+    device = torch.device(device)
+    _check(device, [])
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    lanes = ctypes.c_int(0)
+    err = load_library().pt_wave_drain_lanes(index, ctypes.byref(lanes))
+    if err != 0:
+        raise RuntimeError(f"wave_drain occupancy failed: CUDA error {err}")
+    return lanes.value
+
+
+def wave_drain_cuda(bricks: BrickSet, table: torch.Tensor, ctl, bg,
+                    rr_start_depth: int, max_depth: int, out: torch.Tensor,
+                    lanes: int) -> None:
+    """Launch the drain and its tally on the current stream with ``lanes``
+    threads (a multiple of 128; ``drain_lanes``): ``drain_plain``'s contract
+    on the carried table ``table`` (float32 [16, C], rows contiguous) and
+    the control block ``ctl`` on one card.  Adds one to
+    ``wave_drain_cuda.launches`` per launch."""
+    device = table.device
+    if (table.ndim != 2 or table.shape[0] != TABLE_ROWS
+            or table.dtype != torch.float32 or table.stride(1) != 1):
+        raise ValueError(f"table: need a float32 [16, C] tensor with "
+                         f"contiguous rows, got {table.dtype} "
+                         f"{tuple(table.shape)}")
+    _check(device, [("bg", bg, torch.float32, (3,)),
+                    ("out", out, torch.float32, None),
+                    ("bricks.brick_data", bricks.brick_data, torch.float32,
+                     None),
+                    ("bricks.sph_rows", bricks.sph_rows, torch.float32,
+                     None)])
+    if out.ndim != 3 or out.shape[2] != 3:
+        raise ValueError("out: need [num_samples, pixels, 3]")
+    if tuple(bricks.brick_data.shape[1:]) != (BRICK_ROWS, 128):
+        raise ValueError("bricks.brick_data: need [B, 136, 128]")
+    if bricks.top_depth + 2 > STACK_DEPTH:
+        raise ValueError(f"top tree of depth {bricks.top_depth} is too deep "
+                         f"for the kernel's stack of {STACK_DEPTH} slots")
+    if lanes <= 0 or lanes % 128:
+        raise ValueError(f"lanes: need a positive multiple of 128, got "
+                         f"{lanes}")
+    nodes, tris, gates = walk_pointers(bricks)
+    _launch("wave_drain", load_library().pt_wave_drain_launch, device,
+            table.data_ptr(), table.stride(0), nodes, tris, gates,
+            bricks.brick_data.data_ptr(), bricks.sph_rows.data_ptr(),
+            bricks.num_spheres, bg.data_ptr(), int(rr_start_depth),
+            int(max_depth), out.data_ptr(), int(out.shape[1]),
+            _control(ctl, device), int(lanes))
+    wave_drain_cuda.launches += 1
+
+
+wave_drain_cuda.launches = 0
+
+
 # -- dispatch -----------------------------------------------------------------
 
 def _on(device, name: str) -> bool:
@@ -746,6 +819,55 @@ def tally(ctl) -> None:
     ctl[COUNT] = ctl[NEXT]
     ctl[NEXT] = 0
     ctl[DEPTH] += 1
+
+
+def drain_plain(bricks: BrickSet, table: torch.Tensor, ctl, bg,
+                rr_start_depth: int, max_depth: int, out: torch.Tensor,
+                trace=None, steps=None) -> None:
+    """The drain's plain version: the live columns among the first
+    ``ctl[VALID]`` of the carried table ``table`` [16, C], from depth
+    ``ctl[DEPTH]`` on, traced (``trace(bricks, org, dirn, tnear) -> (t,
+    slot)``, default the plain walk), recorded and shaded (``steps``,
+    default ``PLAIN_STEPS``) level by level, unsorted, until none is live;
+    each path's radiance written to ``out`` [num_samples, pixels, 3] at its
+    (sample, pixel) when it ends.  The rays traced add to ``ctl[RAYS]``,
+    the levels (the waves the live-prefix loop would have run) to
+    ``WAVES`` and ``DEPTH``; no ray is left (``COUNT``, ``NEXT``,
+    ``VALID`` 0).  Given the wave step's kernels (``STEPS`` and kernel B2)
+    on a card it runs what the drain kernel fuses, launch by launch."""
+    trace = trace or trace_bricks_plain
+    steps = steps or PLAIN_STEPS
+    rows = table[:, :min(int(ctl[VALID]), int(table.shape[1]))]
+    live = rows[:, rows[LIVE] > 0.0]
+    depth, levels, rays = int(ctl[DEPTH]), 0, 0
+    while live.shape[1]:
+        org, dirn = rows3(live, ORG), rows3(live, DIR)
+        t, slot = trace(bricks, org, dirn, SECONDARY_TNEAR)[:2]
+        rec = steps.record(bricks, t, slot, org, dirn, SECONDARY_TNEAR)
+        new = steps.shade(live, rec, depth, bg, rr_start_depth, max_depth,
+                          out)
+        rays += int(live.shape[1])
+        levels += 1
+        depth += 1
+        live = new[:, new[LIVE] > 0.0]
+    ctl[WAVES] += levels
+    ctl[RAYS] += rays
+    ctl[DEPTH] += levels
+    for k in (COUNT, NEXT, VALID, CURSOR, LEVELS):
+        ctl[k] = 0
+
+
+def drain_counted(bricks: BrickSet, table: torch.Tensor, ctl, bg,
+                  rr_start_depth: int, max_depth: int, out: torch.Tensor,
+                  lanes: int) -> None:
+    """The drain of the carried table ``table`` under the control block
+    ``ctl``: the kernel with ``lanes`` threads on a card, ``drain_plain``
+    on the CPU."""
+    if _on(table.device, "drain"):
+        wave_drain_cuda(bricks, table, ctl, bg, rr_start_depth, max_depth,
+                        out, lanes)
+    else:
+        drain_plain(bricks, table, ctl, bg, rr_start_depth, max_depth, out)
 
 
 class WaveSteps(NamedTuple):

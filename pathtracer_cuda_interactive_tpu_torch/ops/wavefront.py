@@ -25,7 +25,9 @@ the one host read a wave.  On a card with kernel B2 and no point-light
 NEE, the fixed-capacity loop (``WaveCache``) runs the same waves without
 that read: the table keeps the chunk's capacity, the live count stays on
 the card, and groups of waves replay as CUDA graphs, one host read a
-group.  The same rays reach the same depths with the
+group; once the live count fits in the lanes the card holds at once, one
+launch (the drain) carries every live path to its end.  The same rays
+reach the same depths with the
 same RNG streams (2 camera jitter draws, then 3 BSDF draws and 1 RR draw
 per bounce, as in ops/integrator.py).  A ray's radiance is written when it
 dies, into a [num_samples, H*W, 3] buffer at its (sample, pixel), which is
@@ -538,9 +540,10 @@ GROUP_WAVES = 4
 # trace engines the fixed-capacity loop runs: kernel B2 (``parse_engine``)
 FIXED_ENGINES = ("slim", "slimg")
 # the wrappers whose launches a graph of the fixed-capacity loop holds: B2,
-# W1, W2, W3
+# W1, W2, W3, and the drain
 GRAPH_KERNELS = (trace_bricks_cuda, wave_step.wave_record_cuda,
-                 wave_step.wave_shade_cuda, wave_step.wave_sort_key_cuda)
+                 wave_step.wave_shade_cuda, wave_step.wave_sort_key_cuda,
+                 wave_step.wave_drain_cuda)
 
 
 def _classes(capacity: int) -> list:
@@ -575,8 +578,9 @@ class _ChunkWaves:
     ray table of C columns (``carry``) with its keys, the control block
     (ops/wave_step.py), the radiance buffer and the scene's constants, all
     on the card at fixed addresses; on a card, CUDA graphs of the primary
-    wave and of a group of GROUP_WAVES secondary waves at each capacity
-    class (``_classes``), captured when the chunk is built.
+    wave, of a group of GROUP_WAVES secondary waves at each capacity class
+    (``_classes``) above ``drain_limit``, and of the drain, captured when
+    the chunk is built.
 
     A wave of c columns (the primary wave's table, or the carried table
     sorted by its keys) is traced, recorded and shaded over its first
@@ -588,11 +592,23 @@ class _ChunkWaves:
     are that loop's bit for bit.  The host reads the control block once a
     group, to pick the next class and to end the loop.
 
+    At a read whose live count is at most ``drain_limit``, the drain
+    (ops/wave_step.py::drain_counted) replaces the groups left: one launch
+    carries every live path to its end, each path through the same trace,
+    record and shade in the same order, so the image, waves and rays stay
+    the live-prefix loop's.  On a card ``drain_limit`` is the drain's
+    resident lanes (``drain_lanes``, read once here), so the drain starts
+    once the tail's waves could no longer fill the card; a class at or
+    below it is never reached there and has no graph.  On the CPU it is 0 (no drain) unless a caller sets
+    it.
+
     A capture launches nothing: the launches that GRAPH_KERNELS' wrappers
     count while a graph is captured become that graph's own (``launches``,
-    {graph: [B2, W1, W2, W3]}), and each replay adds them to the wrappers'
-    ``launches``, waves after the live count reached zero included.
-    ``replays`` counts the replays of the primary wave and of groups."""
+    {graph: [B2, W1, W2, W3, drain]}), and each replay adds them to the
+    wrappers' ``launches``, waves after the live count reached zero
+    included.  ``replays`` counts the replays of the primary wave, of
+    groups and of the drain (on the CPU, the runs of their steps), and
+    ``drained`` the waves and rays the drain took over."""
 
     def __init__(self, slots, num_samples: int, scene, cam_data, width: int,
                  height: int, seed: int, max_depth: int, rr_start_depth: int,
@@ -625,9 +641,13 @@ class _ChunkWaves:
         self.lo = lo.to(torch.float32).contiguous()
         self.inv_extent = 1.0 / torch.clamp_min(hi - lo, 1e-12)
         self.coarse = getattr(scene, "coarse_boxes", None)
+        self.drain_lanes = (wave_step.drain_lanes(dev)
+                            if dev.type == "cuda" else 0)
+        self.drain_limit = self.drain_lanes
         self.graphs = None
         self.launches = {}
-        self.replays = {"primary": 0, "group": 0}
+        self.replays = {"primary": 0, "group": 0, "drain": 0}
+        self.drained = {"waves": 0, "rays": 0}
         if dev.type == "cuda" and C:
             self._capture(pool)
 
@@ -669,16 +689,24 @@ class _ChunkWaves:
             self._wave(self.carry[:, :c].index_select(1, perm),
                        SECONDARY_TNEAR)
 
+    def _drain(self) -> None:
+        """Every live path of ``carry`` carried to its end."""
+        wave_step.drain_counted(self.scene, self.carry, self.ctl, self.bg,
+                                self.rr_start_depth, self.max_depth,
+                                self.out, self.drain_lanes)
+
     def _capture(self, pool) -> None:
         """Run every step once on a side stream (kernel libraries, lazy
-        module loads, the sort's scratch), then capture the primary wave
-        and each class's group into CUDA graphs sharing ``pool``.  Every
-        tensor a graph hands to another is one of the fixed buffers above,
-        so the graphs may replay in any order."""
+        module loads, the sort's scratch), then capture the primary wave,
+        the group of each class above ``drain_limit`` and the drain into
+        CUDA graphs sharing ``pool``.  Every tensor a graph hands to
+        another is one of the fixed buffers above, so the graphs may
+        replay in any order."""
         dev = self.carry.device
         fns = {"primary": self._primary}
         fns.update({c: functools.partial(self._group, c)
-                    for c in self.classes})
+                    for c in self.classes if c > self.drain_limit})
+        fns["drain"] = self._drain
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         graphs = {}
@@ -703,35 +731,44 @@ class _ChunkWaves:
         self.graphs = graphs
 
     def _run(self, name) -> None:
-        """Replay graph ``name`` ("primary" or a class), or on the CPU run
-        its steps."""
+        """Replay graph ``name`` ("primary", a class or "drain"), or on the
+        CPU run its steps."""
         with span("wavefront.replay"):
             if self.graphs is not None:
                 self.graphs[name].replay()
                 for w, n in zip(GRAPH_KERNELS, self.launches[name]):
                     w.launches += n
-                self.replays["primary" if name == "primary" else "group"] += 1
             elif name == "primary":
                 self._primary()
+            elif name == "drain":
+                self._drain()
             else:
                 self._group(name)
+        self.replays[name if name in ("primary", "drain") else "group"] += 1
 
     def render(self, cam_data: torch.Tensor, sample_start: int,
                stats: dict) -> torch.Tensor:
         """Radiance [num_samples, H*W, 3] of samples sample_start .. +
         num_samples, each (sample, pixel) written once; adds the waves and
-        rays traced to ``stats`` and the port's counters."""
+        rays traced to ``stats`` and the port's counters ("drain_rays" the
+        rays the drain traced)."""
         if not self.capacity:
             return self.out
         with span("frame.rays"):
             self.cam.copy_(cam_data)
             self.first_sample.fill_(rng._as_i32(sample_start))
         self._run("primary")
+        before_drain = None
         while True:
             with span("frame.read"):
                 ctl = self.ctl.tolist()
-            if not ctl[wave_step.COUNT]:
+            live = ctl[wave_step.COUNT]
+            if not live:
                 break
+            if live <= self.drain_limit:
+                before_drain = ctl
+                self._run("drain")
+                continue
             valid = ctl[wave_step.VALID]
             self._run(min(c for c in self.classes if c >= valid))
         waves, rays = ctl[wave_step.WAVES], ctl[wave_step.RAYS]
@@ -739,6 +776,12 @@ class _ChunkWaves:
         stats["rays"] = stats.get("rays", 0) + rays
         count("waves", waves)
         count("rays", rays)
+        drained = (0, 0) if before_drain is None else (
+            waves - before_drain[wave_step.WAVES],
+            rays - before_drain[wave_step.RAYS])
+        self.drained["waves"] += drained[0]
+        self.drained["rays"] += drained[1]
+        count("drain_rays", drained[1])
         if self.graphs is not None:
             count("graph_waves", waves)
         return self.out
@@ -792,10 +835,16 @@ class WaveCache:
         return torch.equal(pix_slots, old_slots)
 
     def replays(self) -> dict:
-        """{"primary": n, "group": m}: the graphs replayed by the chunks
-        built since the frame key last changed."""
+        """{"primary": n, "group": m, "drain": k}: the graphs replayed by
+        the chunks built since the frame key last changed."""
         return {kind: sum(c.replays[kind] for c in self._chunks.values())
-                for kind in ("primary", "group")}
+                for kind in ("primary", "group", "drain")}
+
+    def drained(self) -> dict:
+        """{"waves": n, "rays": m}: what the drains of those chunks took
+        over from the groups."""
+        return {kind: sum(c.drained[kind] for c in self._chunks.values())
+                for kind in ("waves", "rays")}
 
     def chunk(self, slots, s0: int, num_samples: int, *args) -> _ChunkWaves:
         """The chunk of ``slots`` (from slot ``s0`` of the slot map ``begin``

@@ -27,8 +27,9 @@ CPU, of running its steps).  While a profiler records, every span also
 adds its count and host seconds to a total by name (``totals()``), and
 ``count(name, n)`` adds to a counter by name (``counts()``: "waves" and
 "rays" from the wave loop, "graph_waves" the waves run inside a graph's
-replay): one entry a name, so a long viewer run grows nothing, and
-nothing at all while no profiler records.
+replay, "drain_rays" the rays the fixed-capacity loop's drain traced):
+one entry a name, so a long viewer run grows nothing, and nothing at all
+while no profiler records.
 
 ``setup_span(name)`` is such a span that also adds its seconds, profiler
 or not, to the process's set-up record by name (``setup_seconds()``):

@@ -12,11 +12,12 @@ The cases marked ``cuda`` skip without a card and import no jax, so on the
 card this file runs with ``python -m pytest --noconftest -m cuda
 tests/test_torch_wave_graphs.py``: the graph path against the live-prefix
 loop (the same kernels, reached through an explicit ``tracer``) bit for
-bit at 640x480 with 2 and 10 samples a frame (two chunks), in every sort
-mode and on a tile slice; each kernel's launches against the graphs
-replayed (one wave a primary graph, GROUP_WAVES a group), and the waves
-traced within them; a renderer's state kept over camera moves and rebuilt
-by ``set_samples_per_frame``, and no capture after a chunk shape's first
+bit at 640x480 with 2 and 10 samples a frame (two chunks), the drain
+engaged, in every sort mode and on a tile slice; each kernel's launches
+against the graphs replayed (one wave a primary graph, GROUP_WAVES a
+group, the drain's own launch a drain), and the waves traced within them
+and the drain's; a renderer's state kept over camera moves and rebuilt by
+``set_samples_per_frame``, and no capture after a chunk shape's first
 frame; the share of waves replayed from graphs, and none with NEE or
 ``slim2``; W3's counted keys and live count.
 """
@@ -144,7 +145,14 @@ def _launches():
     return [wavefront.trace_bricks_cuda.launches,
             wave_step.wave_record_cuda.launches,
             wave_step.wave_shade_cuda.launches,
-            wave_step.wave_sort_key_cuda.launches]
+            wave_step.wave_sort_key_cuda.launches,
+            wave_step.wave_drain_cuda.launches]
+
+
+def _groups(chunk):
+    """The classes a chunk captured a group for: those above its drain
+    limit."""
+    return [c for c in chunk.classes if c > chunk.drain_limit]
 
 
 @pytest.mark.cuda
@@ -165,30 +173,34 @@ def test_cuda_graph_path_matches_the_live_prefix_loop(blob_cuda, spp,
                        cam.lookat, cam.up, cam.vfov), 640, 480)).cuda()
         kw = dict(sort_mode=sort_mode, pix_slots=pix_slots)
         before, stats, ref_stats = _launches(), {}, {}
-        replays0 = cache.replays()
+        replays0, drained0 = cache.replays(), cache.drained()
         got = wavefront.render_samples_wavefront(
             bricks, cd, 640, 480, start, spp, stats=stats, wave_cache=cache,
             **kw)
         torch.cuda.synchronize()
-        waves = stats["waves"]
-        primary, group = (cache.replays()[k] - replays0[k]
-                          for k in ("primary", "group"))
+        primary, group, drain = (cache.replays()[k] - replays0[k]
+                                 for k in ("primary", "group", "drain"))
+        drained = cache.drained()["waves"] - drained0["waves"]
+        # the waves the groups ran; the rest ran in the drain
+        waves = stats["waves"] - drained
         K = wavefront.GROUP_WAVES
         launched = primary + K * group
-        # a chunk's waves end inside its last group
-        assert primary == chunks
-        assert waves <= launched <= waves + (K - 1) * chunks
+        # a chunk's waves end inside its last group or in its drain
+        assert primary == chunks and drain == chunks
+        assert drained > 0
+        assert waves <= launched <= waves + (K - 1) * (chunks - drain)
         if not frame:
             # the eager pass before a chunk's graphs are captured
-            launched += sum(1 + K * len(c.classes)
+            launched += sum(1 + K * len(_groups(c))
                             for c in cache._chunks.values())
+            drain += len(cache._chunks)
         assert [a - b for a, b in zip(_launches(), before)] \
-            == [launched] * 4
+            == [launched] * 4 + [drain]
         ref = wavefront.render_samples_wavefront(
             bricks, cd, 640, 480, start, spp, stats=ref_stats,
             tracer=wavefront.trace_wave_slim, **kw)
         assert torch.equal(got, ref)
-        assert stats == ref_stats and waves > 10 * chunks
+        assert stats == ref_stats and stats["waves"] > 10 * chunks
 
 
 def _renderer(spf, **config):
@@ -212,10 +224,11 @@ def test_cuda_state_kept_over_camera_moves_and_rebuilt_for_spf(monkeypatch):
     r = _renderer(10)
     r.step(sync=True)
     chunks = dict(r._wave_cache._chunks)
-    # two chunk shapes (6 and 4 samples), each a primary graph and a
-    # group a class
+    # two chunk shapes (6 and 4 samples), each a primary graph, a group a
+    # class above its drain limit and the drain
     assert len(chunks) == 2
-    assert len(captures) == sum(len(c.classes) + 1 for c in chunks.values())
+    assert len(captures) == sum(len(_groups(c)) + 2
+                                for c in chunks.values())
     first = len(captures)
     cam = r.camera
     for k in range(3):
