@@ -60,11 +60,12 @@ JAX, and fails with a non-zero exit code if any phase fails:
    states, pixels, samples and live flags bit for bit and its floats within
    rtol 1e-4 on all but 1e-4 of the rays; each timed, with its plain
    version, on the primary and the sorted first-bounce wave;
-3j. the main path's fixed-capacity wave loop (ops/wavefront.py::WaveCache,
-   the wavefront's defaults at 640x480, 2 samples, depth 50): two frames,
-   the first capturing its CUDA graphs and the second replaying them
-   alone, the drain engaged in each, each image and its waves and rays
-   equal bit for bit to 3i's frame through the live-prefix loop, each
+3j. the main path's wave loop in its counted schedule (ops/wavefront.py::
+   _ChunkWaves through a kept WaveCache, the wavefront's defaults at
+   640x480, 2 samples, depth 50): two frames, the first capturing its CUDA
+   graphs and the second replaying them alone, the drain engaged in each,
+   each image and its waves and rays equal bit for bit to 3i's frame
+   through the uncounted schedule (no cache kept), each
    graph holding one launch of B2, W1, W2 and W3 a wave and the drain's
    graph one launch of the drain; then B2 and W1-W3 in their counted form
    (a device-side live count, ``ctl``) on the sorted first-bounce wave and
@@ -115,7 +116,7 @@ JAX, and fails with a non-zero exit code if any phase fails:
 4b. the large-scene main path: ProgressiveRenderer on the subdivided
    blob_box at 640x480, 2 samples per frame, depth 50, on cuda (the
    sorted wavefront) — 10 synced frames after warmup with every plain
-   version of the bounce step made to raise (the fixed-capacity loop, its
+   version of the bounce step made to raise (the counted schedule, its
    graphs captured in warmup), B2's, W1's, W2's and W3's launches over
    the timed frames each one a primary graph replayed and GROUP_WAVES a
    group, the drain's one a drain replayed, the waves traced outside the
@@ -220,22 +221,13 @@ import torch
 MAIN_W, MAIN_H = 640, 480
 SMALL_W, SMALL_H = 160, 120
 SPP = 2
-# Published peaks of one NVIDIA H100 SXM at a 700 W power limit: float32
-# outside the tensor cores, and HBM3.
-PEAK_FP32_OPS = 67e12
-PEAK_BYTES_PER_S = 3.35e12
-# float32 operations of one slab test (6 subtractions, 6 products, 12
-# min/max, 2 comparisons) and of one Moller-Trumbore test (two cross
-# products, four dot products, a reciprocal, a subtraction, three scalings
-# and the range checks), as csrc/brick_walk.cuh and csrc/pt_common.cuh do
-# them; a bounce's shading is small beside its walk and is not counted.
-BOX_OPS = 26
-TRI_OPS = 52
 
 
 def bound(nbytes: float, ops: float) -> dict:
     """The least time the card could take: the larger of the bytes over the
-    memory rate and the operations over the FP32 rate, in ms."""
+    memory rate and the operations over the FP32 rate (the benchmark's
+    peaks, torrey_bench/roofline.py), in ms."""
+    from torrey_bench.roofline import PEAK_BYTES_PER_S, PEAK_FP32_OPS
     by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     by_ops = ops / PEAK_FP32_OPS * 1e3
     return {"bound_ms": max(by_bytes, by_ops),
@@ -1070,6 +1062,9 @@ def main(argv=None) -> int:
         ProgressiveRenderer)
     from pathtracer_cuda_interactive_tpu_torch.utils.config import (
         RenderConfig)
+    # float32 operations of a slab test and of a Moller-Trumbore test, as
+    # csrc/brick_walk.cuh and csrc/pt_common.cuh do them
+    from torrey_bench.roofline import BOX_OPS, TRI_OPS
 
     dev = torch.device("cuda")
     results = {}
@@ -1966,9 +1961,9 @@ def main(argv=None) -> int:
                    b6_digest=b6_digest)
     stamp("3i done")
 
-    # -- 3j. the main path's fixed-capacity loop at its shape: two frames
+    # -- 3j. the main path's counted schedule at its shape: two frames
     # through its graphs (the first captures them) against 3i's frame
-    # through the live-prefix loop, and its kernels' counted form on the
+    # through the uncounted schedule, and its kernels' counted form on the
     # sorted first-bounce wave laid in its capacity class
     ref_img, ref_stats = w_frames["blob_box x3"]
     wave_cache = wf.WaveCache()
@@ -1997,12 +1992,12 @@ def main(argv=None) -> int:
     held = all(n == graph_holds(name)
                for c in chunks for name, n in c.launches.items())
     drained = wave_cache.drained()
-    print(f"fixed-capacity loop {MAIN_W}x{MAIN_H} spf {SPP} depth 50: "
+    print(f"counted schedule {MAIN_W}x{MAIN_H} spf {SPP} depth 50: "
           f"{len(chunks)} chunk(s) of {[c.capacity for c in chunks]} rays, "
           f"classes {[c.classes for c in chunks]}, drain at or under "
           f"{[c.drain_limit for c in chunks]} live rays "
           f"({[c.drain_lanes for c in chunks]} resident lanes); frames "
-          f"(capture, replay) equal to the live-prefix frame bit for bit "
+          f"(capture, replay) equal to the uncounted frame bit for bit "
           f"{[f['equal'] for f in graph_frames]}, waves and rays "
           f"{[f['stats'] for f in graph_frames]} against {ref_stats}, "
           f"replays {graph_frames[-1]['replays']}, the drains' waves and "
@@ -2011,11 +2006,13 @@ def main(argv=None) -> int:
     replays = graph_frames[-1]["replays"]
     if not (all(f["equal"] and f["stats"] == ref_stats
                 for f in graph_frames) and held
+            and all(c.engine.graphed for c in chunks)
             and replays["primary"] == 2 * len(chunks)
             and replays["drain"] == 2 * len(chunks)
             and drained["rays"] > 0):
-        raise SystemExit("chip_smoke: the fixed-capacity loop's frame is "
-                         "not the live-prefix loop's, its graphs do not "
+        raise SystemExit("chip_smoke: the kept cache's chunks are not "
+                         "counted and graphed, their frame is "
+                         "not the uncounted one's, its graphs do not "
                          "hold one launch of B2, W1, W2 and W3 a wave and "
                          "the drain's one of the drain, or no frame drained")
 
@@ -2470,6 +2467,9 @@ def main(argv=None) -> int:
             for _ in range(big_frames):
                 renderer.step(sync=True)
                 ms.append(renderer.frame_ms)
+        if any(c.engine.counted
+               for c in renderer._wave_cache._chunks.values()):
+            raise SystemExit(f"chip_smoke: {engine} ran counted")
         launches = wrapper.launches
         others = [w.launches for w in counters if w is not wrapper]
         if launches != renderer.waves or launches < warmup + big_frames \

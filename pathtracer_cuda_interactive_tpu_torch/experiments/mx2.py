@@ -368,6 +368,6 @@ def render_samples_mx2(mx: MX2Set, cam_data: torch.Tensor, width: int,
     return render_waves(mx, cam_data, width, height, sample_start,
                         num_samples, seed, max_depth, rr_start_depth,
                         sort_mode, nee, mx.scene_lo, mx.scene_hi,
-                        tracer or trace_wave_mx2, _record_mx2, stats,
-                        max_rays=MAX_RAYS_PER_WAVE, pix_slots=pix_slots,
-                        num_real=num_real)
+                        (tracer or trace_wave_mx2,) * max_depth, _record_mx2,
+                        stats, max_rays=MAX_RAYS_PER_WAVE,
+                        pix_slots=pix_slots, num_real=num_real)

@@ -179,6 +179,7 @@ def render_samples_mx(mx: MXSet, cam_data: torch.Tensor, width: int,
     tracer = lambda scene, o, d, tnear: _trace_mx(scene, o, d, tnear, stats)
     return render_waves(mx, cam_data, width, height, sample_start,
                         num_samples, seed, max_depth, rr_start_depth,
-                        sort_mode, nee, mx.scene_lo, mx.scene_hi, tracer,
-                        _record_mx, stats, max_rays=MX_MAX_RAYS_PER_WAVE,
-                        pix_slots=pix_slots, num_real=num_real)
+                        sort_mode, nee, mx.scene_lo, mx.scene_hi,
+                        (tracer,) * max_depth, _record_mx, stats,
+                        max_rays=MX_MAX_RAYS_PER_WAVE, pix_slots=pix_slots,
+                        num_real=num_real)

@@ -35,10 +35,10 @@ the kernel and never fall back, CPU tensors run the plain version.
 ``STEPS`` holds the wrappers and ``PLAIN_STEPS`` the plain versions, which
 the chip smoke runs on the card to hold the kernels to them.
 
-The fixed-capacity wave loop (ops/wavefront.py::WaveCache) keeps a chunk's
-rays in one table of fixed capacity and its counts in an int64 control
-block on the card (``new_control``: the live rays at the head of the
-wave's table, ``COUNT``; the next wave's live count being summed,
+The wave loop's counted schedule (ops/wavefront.py::_ChunkWaves) keeps a
+chunk's rays in one table of fixed capacity and its counts in an int64
+control block on the card (``new_control``: the live rays at the head of
+the wave's table, ``COUNT``; the next wave's live count being summed,
 ``NEXT``; the columns the last wave wrote, ``VALID``; the depth; the waves
 and rays traced; ``CURSOR`` and ``LEVELS`` for the drain).
 ``record_counted``, ``shade_counted`` and ``key_counted`` are W1-W3 over
@@ -75,7 +75,7 @@ ORG, DIR, THROUGHPUT, RADIANCE = 0, 3, 6, 9
 STATE, PIX, SAMP, LIVE = 12, 13, 14, 15
 TABLE_ROWS = 16
 
-# slots of the fixed-capacity loop's control block (csrc/wave_step.cu); the
+# slots of the counted schedule's control block (csrc/wave_step.cu); the
 # drain's: the next column no lane has taken, the most levels a path ran
 COUNT, NEXT, VALID, DEPTH, WAVES, RAYS, CURSOR, LEVELS = range(8)
 CONTROL_SLOTS = 8
@@ -745,7 +745,7 @@ def wave_sort_key(table: torch.Tensor, mode: str, lo, inv_extent,
     return sort_key_plain(table, mode, lo, inv_extent, coarse)
 
 
-# -- the fixed-capacity loop's steps -------------------------------------------
+# -- the counted schedule's steps ---------------------------------------------
 
 def new_control(device) -> torch.Tensor:
     """A zeroed control block (``COUNT`` .. ``RAYS``) on ``device``."""
@@ -831,7 +831,7 @@ def drain_plain(bricks: BrickSet, table: torch.Tensor, ctl, bg,
     default ``PLAIN_STEPS``) level by level, unsorted, until none is live;
     each path's radiance written to ``out`` [num_samples, pixels, 3] at its
     (sample, pixel) when it ends.  The rays traced add to ``ctl[RAYS]``,
-    the levels (the waves the live-prefix loop would have run) to
+    the levels (the waves the uncounted schedule would have run) to
     ``WAVES`` and ``DEPTH``; no ray is left (``COUNT``, ``NEXT``,
     ``VALID`` 0).  Given the wave step's kernels (``STEPS`` and kernel B2)
     on a card it runs what the drain kernel fuses, launch by launch."""

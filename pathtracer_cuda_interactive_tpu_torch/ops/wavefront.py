@@ -17,35 +17,25 @@ are synchronous WAVES over all rays of a frame:
 
 A wave's rays are one ray table, [16, N] (ops/wave_step.py).  Where the JAX
 package keeps a static [rows, 128] table with an active mask, a
-``lax.while_loop`` and a compaction ladder, this loop keeps only the live
-rays: the key of a ray whose path ended is INT32_MAX, so one stable sort
-orders the next wave and sinks the ended rays to the tail, as the JAX
-package's sort does, and one gather keeps the live prefix, whose length is
-the one host read a wave.  On a card with kernel B2 and no point-light
-NEE, the fixed-capacity loop (``WaveCache``) runs the same waves without
-that read: the table keeps the chunk's capacity, the live count stays on
-the card, and groups of waves replay as CUDA graphs, one host read a
-group; once the live count fits in the lanes the card holds at once, one
-launch (the drain) carries every live path to its end.  The same rays
-reach the same depths with the
-same RNG streams (2 camera jitter draws, then 3 BSDF draws and 1 RR draw
-per bounce, as in ops/integrator.py).  A ray's radiance is written when it
-dies, into a [num_samples, H*W, 3] buffer at its (sample, pixel), which is
+``lax.while_loop`` and a compaction ladder, this loop keys a ray whose
+path ended to INT32_MAX, so one stable sort orders the next wave and sinks
+the ended rays, as the JAX package's sort does.  A frame's chunks
+(``_ChunkWaves``) run the waves uncounted (the live rays gathered, one
+host read a wave) or counted (fixed capacity, the live count on the
+device, CUDA graphs, one read a group of waves, the tail in one drain
+launch), as ``wave_engine`` picks: the same rays reach the same depths
+with the same RNG streams (2 camera jitter draws, then 3 BSDF draws and 1
+RR draw per bounce, as in ops/integrator.py).  A ray's radiance is written
+when it dies, into a [num_samples, H*W, 3] buffer at its (sample, pixel),
 unique per ray, and the image is that buffer's sum over samples: no float
 atomics, so renders are bit-reproducible on the card.
 
-``trace_wave_slim`` dispatches on the device of the rays: CUDA tensors
-launch the hand-written kernel (``trace_bricks_cuda``, csrc/brick_trace.cu)
-and never fall back; CPU tensors run its plain version
-(ops/brickkernel.py::trace_bricks_plain).  ``trace_wave_slim2`` does the
-same for kernel B4, the walk with the deferred leaf
-(``trace_bricks_slim2_cuda``, csrc/brick_trace_slim2.cu; plain version
-``trace_bricks_pipelined_plain``), ops/pairtrace.py::trace_wave_pairs for
-kernel B5, and ``trace_wave_full`` for kernel B3 (``trace_bricks_full_cuda``,
-B2's source), the 16-channel record with optional per-ray traversal
-counters, which the JAX package's tools and the port's
-render/kernel_stats.py call.  The bounce step's kernels dispatch the same
-way.
+The trace engines (``trace_wave_slim``, kernel B2; ``trace_wave_slim2``, B4;
+ops/pairtrace.py::trace_wave_pairs, B5; ``trace_wave_full``, B3, the
+16-channel record with per-ray counters that render/kernel_stats.py reads)
+and the bounce step's kernels dispatch on the device of the rays: CUDA
+tensors launch the hand-written kernel and never fall back, CPU tensors
+run its plain version.
 """
 
 from __future__ import annotations
@@ -54,6 +44,7 @@ import ctypes
 import functools
 import re
 from pathlib import Path
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -85,6 +76,7 @@ BUILD_DIR = cuda_build.BUILD_DIR
 
 _lib = None
 _slim2_lib = None
+_PAIRS = {}             # packet rows -> kernel B5's tracer (engine_tracer)
 
 
 # -- engines -----------------------------------------------------------------
@@ -116,13 +108,23 @@ def parse_engine(trace: str):
 
 def engine_tracer(trace: str):
     """The per-wave trace ``tracer(bricks, org, dirn, tnear) -> (t, slot)``
-    of engine name ``trace`` (``parse_engine``)."""
+    of engine name ``trace`` (``parse_engine``): one object a name, as a
+    kept ``WaveCache`` compares engines frame to frame."""
     engine, number = parse_engine(trace)
     if engine == "pairs":
-        return functools.partial(trace_wave_pairs, packet_rows=number)
+        return _PAIRS.setdefault(
+            number, functools.partial(trace_wave_pairs, packet_rows=number))
     if engine == "slim2":
         return trace_wave_slim2
     return trace_wave_slim
+
+
+def trace_kernels(trace: str, tail_trace: str = "") -> set:
+    """The kernels ("B2", "B4", "B5") that the waves of engines ``trace``
+    and ``tail_trace`` ("": none) launch on a card (``parse_engine``)."""
+    names = (trace, tail_trace) if tail_trace else (trace,)
+    kernels = {"slim": "B2", "slimg": "B2", "slim2": "B4", "pairs": "B5"}
+    return {kernels[parse_engine(name)[0]] for name in names}
 
 
 # -- kernel B2 on the card (the library holds B3 too) -------------------------
@@ -197,7 +199,7 @@ def trace_bricks_cuda(bricks: BrickSet, ox: torch.Tensor, oy: torch.Tensor,
     each of the N rays given as contiguous float32 [N] CUDA tensors.
     Returns fresh (t [N] f32, inf on a miss; slot [N] i32, -1 on a miss).
     Adds one to ``trace_bricks_cuda.launches`` per launch; an empty wave
-    launches nothing.  With the fixed-capacity loop's control block ``ctl``
+    launches nothing.  With the counted schedule's control block ``ctl``
     (ops/wave_step.py) only its ``COUNT`` first rays are traced (t and slot
     past them are left unwritten)."""
     n = _check_wave(bricks, (ox, oy, oz, dx, dy, dz), "trace_bricks_cuda")
@@ -240,7 +242,7 @@ def trace_wave_slim(bricks: BrickSet, org: Vec3, dirn: Vec3, tnear: float):
 def trace_wave_counted(bricks: BrickSet, org: Vec3, dirn: Vec3, tnear: float,
                        ctl):
     """``trace_wave_slim`` over the first ``ctl[COUNT]`` of a wave's N
-    columns (the fixed-capacity loop's control block, ops/wave_step.py):
+    columns (the counted schedule's control block, ops/wave_step.py):
     (t, slot) [N], unwritten past them on a card, a miss on the CPU."""
     device = org.x.device
     if bricks.device != device:
@@ -420,130 +422,39 @@ def _wave_layout(width: int, height: int):
 
 # -- the wave loop -----------------------------------------------------------
 
-def _sample_index(sample_start: int, samp: torch.Tensor) -> torch.Tensor:
-    """sample_start + samp modulo 2^32, as int32 bits (the JAX uint32)."""
-    s = (samp.to(torch.int64) + (sample_start & 0xFFFFFFFF)) & 0xFFFFFFFF
-    return torch.where(s >= 2 ** 31, s - 2 ** 32, s).to(torch.int32)
-
-
-def _shadow_waves(rec, light_rows, steps: WaveSteps, trace):
-    """The [L, N] closest triangle hit of each ray's shadow ray toward each
-    light (inf where the ray hit nothing, and so cast none): one shadow wave
-    per light through ``trace(org, dirn, tnear)``, over the rays that hit,
-    gathered by ``torch.nonzero``."""
-    n_lights, n = int(light_rows.shape[0]), int(rec.shape[1])
-    sdir = steps.shadow_rays(rec, light_rows)
-    ts = torch.full((n_lights, n), INF, dtype=torch.float32,
-                    device=rec.device)
-    with span("frame.read"):
-        idx = torch.nonzero(rec[0] < INF).reshape(-1)
-    if idx.numel():
-        so = Vec3(rec[4][idx], rec[5][idx], rec[6][idx])
-        for l in range(n_lights):
-            sd = Vec3(*(sdir[l, k][idx] for k in range(3)))
-            ts[l, idx] = trace(so, sd, SECONDARY_TNEAR)[0]
-    return ts
-
-
-def _render_chunk(scene, cam_data, width: int, height: int,
-                  pix_slots, sample_start: int, num_samples: int, seed: int,
-                  max_depth: int, rr_start_depth: int, sort_mode: str,
-                  light_rows, bg, lo, inv_extent, tracers, record,
-                  steps: WaveSteps, stats: dict):
-    """Radiance [num_samples, H*W, 3] of samples sample_start .. +
-    num_samples, each (sample, pixel) written once.
-    ``scene`` is a BrickSet or one of the experiments' sets: anything with
-    ``sph_rows`` and ``num_spheres`` (and ``coarse_boxes`` for the
-    "sig_mort" key).  ``tracers(depth)`` is the engine of the waves at that
-    depth, ``tracer(scene, org, dirn, tnear)``, which returns a wave's
-    closest triangle hits as a tuple whose first entry is t, and
-    ``record(scene, *hit, org, dirn, tnear)`` makes the 16-channel record
-    of them ([16, N], or a tuple of 16 [N] tensors)."""
-    dev = cam_data.device
-    R = width * height
-    n_slots = int(pix_slots.numel())
-    with span("frame.rays"):
-        pix = pix_slots.repeat(num_samples)
-        samp = torch.arange(num_samples, dtype=torch.int32,
-                            device=dev).repeat_interleave(n_slots)
-        keep = pix < R                   # padding slots never become rays
-        # a boolean gather reads its count back to the host
-        with span("frame.read"):
-            pix = pix[keep]
-        with span("frame.read"):
-            samp = samp[keep]
-
-        state = rng.seed_rays(pix, _sample_index(sample_start, samp), seed)
-        state, u1 = rng.next_uniform(state)
-        state, u2 = rng.next_uniform(state)
-        i = (pix % width).to(torch.float32)
-        j = (pix // width).to(torch.float32)
-        org, dirn = generate_primary_rays(cam_data, (i + u1) / width,
-                                          (j + u2) / height)
-        table = wave_step.make_table(org, dirn, state, pix, samp)
-        out = torch.zeros((num_samples, R, 3), dtype=torch.float32,
-                          device=dev)
-    coarse = getattr(scene, "coarse_boxes", None)
-
-    def trace(tracer, o, d, tnear):
-        n = int(o.x.numel())
-        stats["waves"] = stats.get("waves", 0) + 1
-        stats["rays"] = stats.get("rays", 0) + n
-        count("waves")
-        count("rays", n)
-        return tracer(scene, o, d, tnear)
-
-    n = int(table.shape[1])
-    depth = 0
-    while n:
-        if depth:
-            with span("wavefront.sort"):
-                # ended rays key to INT32_MAX: one stable sort orders the
-                # live rays and sinks the others, one gather keeps the live
-                key = steps.key(table, sort_mode, lo, inv_extent, coarse)
-                perm = torch.sort(key, stable=True).indices[:n]
-                table = table.index_select(1, perm)
-        tracer = tracers(depth)
-        tnear = 0.0 if depth == 0 else SECONDARY_TNEAR
-        org = wave_step.rows3(table, wave_step.ORG)
-        dirn = wave_step.rows3(table, wave_step.DIR)
-        with span("wavefront.trace"):
-            hit = trace(tracer, org, dirn, tnear)
-        with span("wavefront.shade"):
-            rec = record(scene, *hit, org, dirn, tnear)
-            if isinstance(rec, tuple):
-                rec = torch.stack(rec)
-            shadow_t = None
-            if light_rows is not None:
-                shadow_t = _shadow_waves(
-                    rec, light_rows, steps,
-                    lambda o, d, tn: trace(tracer, o, d, tn))
-            table = steps.shade(table, rec, depth, bg, rr_start_depth,
-                                max_depth, out, light_rows, shadow_t,
-                                scene.sph_rows, scene.num_spheres)
-        depth += 1
-        with span("wavefront.count"):
-            live = torch.count_nonzero(table[wave_step.LIVE])
-            with span("frame.read"):
-                # the one explicit host read a wave: the next wave's size
-                n = int(live)
-    return out
-
-
-# -- the fixed-capacity wave loop --------------------------------------------
-
 # one block of 32 x 128 slots: the granule a slot map is cut in and the
-# smallest capacity class of the fixed-capacity loop
+# smallest capacity class of the counted schedule
 BLOCK_SLOTS = 32 * LANES
 # secondary waves a captured group runs between two host reads
 GROUP_WAVES = 4
-# trace engines the fixed-capacity loop runs: kernel B2 (``parse_engine``)
-FIXED_ENGINES = ("slim", "slimg")
-# the wrappers whose launches a graph of the fixed-capacity loop holds: B2,
-# W1, W2, W3, and the drain
+# the wrappers whose launches a counted graph holds: B2, W1-W3, the drain
 GRAPH_KERNELS = (trace_bricks_cuda, wave_step.wave_record_cuda,
                  wave_step.wave_shade_cuda, wave_step.wave_sort_key_cuda,
                  wave_step.wave_drain_cuda)
+
+
+class WaveEngine(NamedTuple):
+    """What a chunk's waves run, and in which schedule (``wave_engine``)."""
+    tracers: tuple      # the trace of the waves at depth 0 .. max_depth - 1
+    record: Callable    # (scene, *hit, org, dirn, tnear) -> [16, N]
+    steps: WaveSteps
+    lights: bool        # a point light is sampled: NEE's shadow waves
+    counted: bool       # the counted schedule, else the uncounted one
+    graphed: bool       # the counted schedule replayed from CUDA graphs
+
+
+def wave_engine(kept: bool, tracers, record, steps: WaveSteps, lights: bool,
+                device) -> WaveEngine:
+    """The engine of a frame's waves and its schedule, chosen from what the
+    loop sees: counted where the caller keeps the chunks from frame to
+    frame (``kept``), every depth's trace is kernel B2 (``trace_wave_slim``),
+    the bounce step is ``STEPS`` and no light is sampled, and then graphed
+    on a card; uncounted everywhere else."""
+    tracers = tuple(tracers)
+    counted = (kept and steps is STEPS and not lights
+               and all(t is trace_wave_slim for t in tracers))
+    return WaveEngine(tracers, record, steps, lights, counted,
+                      counted and torch.device(device).type == "cuda")
 
 
 def _classes(capacity: int) -> list:
@@ -573,67 +484,57 @@ def _chunks(n_slots: int, num_samples: int, max_rays: int):
 
 
 class _ChunkWaves:
-    """One chunk shape's fixed-capacity wave loop: the kept (pixel, sample)
-    columns of its C camera rays, the camera and first sample it reads, a
-    ray table of C columns (``carry``) with its keys, the control block
-    (ops/wave_step.py), the radiance buffer and the scene's constants, all
-    on the card at fixed addresses; on a card, CUDA graphs of the primary
-    wave, of a group of GROUP_WAVES secondary waves at each capacity class
-    (``_classes``) above ``drain_limit``, and of the drain, captured when
-    the chunk is built.
+    """One chunk shape of a frame and its wave loop: the kept (pixel,
+    sample) columns of its C camera rays, the camera and first sample they
+    read (``_camera_rays``), the radiance buffer, the scene's constants and
+    the waves' engine (``WaveEngine``), on the scene's device.  The waves
+    run in one of two schedules, the same rays at the same depths with the
+    same RNG streams, so images, waves and rays are the same bit for bit:
 
-    A wave of c columns (the primary wave's table, or the carried table
-    sorted by its keys) is traced, recorded and shaded over its first
-    ``COUNT`` columns into ``carry``; W3 keys them (INT32_MAX past the
-    count) and sums the next wave's live count; the tally moves the counts
-    on.  A group's class is the smallest one that holds the columns the
-    last wave wrote, so one stable sort of that many keys puts every live
-    ray ahead of the rest in the live-prefix loop's order, and the images
-    are that loop's bit for bit.  The host reads the control block once a
-    group, to pick the next class and to end the loop.
+    * uncounted: each wave is the live rays alone.  W3 keys the last wave's
+      table (INT32_MAX for an ended ray), one stable sort orders the live
+      rays ahead of the rest and one gather keeps them, their count the one
+      host read a wave.  Any engine at each depth, and NEE's shadow waves.
+    * counted: B2 and W1-W3 over the first ``COUNT`` columns of a table of
+      C columns (``carry``), with its keys and the control block
+      (ops/wave_step.py) at fixed addresses; the tally moves the counts on
+      from wave to wave.  A group of GROUP_WAVES waves runs at the smallest
+      capacity class (``_classes``) that holds the columns the last wave
+      wrote, sorted as the uncounted schedule sorts, and the host reads the
+      control block once a group.  At a read whose live count is at most
+      ``drain_limit`` the drain (ops/wave_step.py::drain_counted) carries
+      every live path to its end in one launch.  On a card ``drain_limit``
+      is the drain's resident lanes (``drain_lanes``), and the primary
+      wave, the group of each class above it and the drain are CUDA graphs
+      captured at build (``_capture``); on the CPU the steps run eagerly
+      and the limit is 0 unless a caller sets it.  ``replays`` counts the
+      replays of the primary wave, of groups and of the drain (on the CPU,
+      the runs of their steps), ``drained`` the waves and rays the drain
+      took over."""
 
-    At a read whose live count is at most ``drain_limit``, the drain
-    (ops/wave_step.py::drain_counted) replaces the groups left: one launch
-    carries every live path to its end, each path through the same trace,
-    record and shade in the same order, so the image, waves and rays stay
-    the live-prefix loop's.  On a card ``drain_limit`` is the drain's
-    resident lanes (``drain_lanes``, read once here), so the drain starts
-    once the tail's waves could no longer fill the card; a class at or
-    below it is never reached there and has no graph.  On the CPU it is 0 (no drain) unless a caller sets
-    it.
-
-    A capture launches nothing: the launches that GRAPH_KERNELS' wrappers
-    count while a graph is captured become that graph's own (``launches``,
-    {graph: [B2, W1, W2, W3, drain]}), and each replay adds them to the
-    wrappers' ``launches``, waves after the live count reached zero
-    included.  ``replays`` counts the replays of the primary wave, of
-    groups and of the drain (on the CPU, the runs of their steps), and
-    ``drained`` the waves and rays the drain took over."""
-
-    def __init__(self, slots, num_samples: int, scene, cam_data, width: int,
-                 height: int, seed: int, max_depth: int, rr_start_depth: int,
-                 sort_mode: str, lo, hi, pool=None):
+    def __init__(self, slots, num_samples: int, engine: WaveEngine, scene,
+                 cam_data, width: int, height: int, seed: int,
+                 max_depth: int, rr_start_depth: int, sort_mode: str, lo, hi,
+                 pool=None):
         dev = cam_data.device
         R = width * height
-        pix = slots.repeat(num_samples)
-        samp = torch.arange(num_samples,
-                            dtype=torch.int32).repeat_interleave(slots.numel())
-        keep = pix < R                   # padding slots never become rays
-        self.scene, self.width, self.height = scene, width, height
+        # an upload from host memory, and a boolean gather's count, wait
+        # for the card's queue
+        read = span("frame.read") if dev.type != "cpu" else NOOP
+        with read:
+            slots = slots.to(dev)
+        cols = torch.stack((slots.repeat(num_samples), torch.arange(
+            num_samples, dtype=torch.int32,
+            device=dev).repeat_interleave(slots.numel())))
+        with read:                       # padding slots never become rays
+            self.pix, self.samp = cols[:, cols[0] < R]
+        self.engine, self.scene = engine, scene
+        self.width, self.height = width, height
         self.seed, self.max_depth = seed, max_depth
         self.rr_start_depth, self.sort_mode = rr_start_depth, sort_mode
-        self.pix = pix[keep].to(dev)
-        self.samp = samp[keep].to(dev)
         self.capacity = C = int(self.pix.numel())
-        self.classes = _classes(C)
         self.cam = cam_data.clone()
         self.first_sample = torch.zeros(1, dtype=torch.int32, device=dev)
-        self.ctl = wave_step.new_control(dev)
-        self.ctl_start = wave_step.new_control(dev)
-        self.ctl_start[wave_step.COUNT] = C
-        self.carry = torch.zeros((wave_step.TABLE_ROWS, C),
-                                 dtype=torch.float32, device=dev)
-        self.key = torch.empty(C, dtype=torch.int32, device=dev)
         self.out = torch.zeros((num_samples, R, 3), dtype=torch.float32,
                                device=dev)
         self.bg = torch.stack([scene.bg_r, scene.bg_g,
@@ -641,15 +542,123 @@ class _ChunkWaves:
         self.lo = lo.to(torch.float32).contiguous()
         self.inv_extent = 1.0 / torch.clamp_min(hi - lo, 1e-12)
         self.coarse = getattr(scene, "coarse_boxes", None)
-        self.drain_lanes = (wave_step.drain_lanes(dev)
-                            if dev.type == "cuda" else 0)
-        self.drain_limit = self.drain_lanes
+        self.light_rows = (torch.cat([scene.light_pos, scene.light_intensity],
+                                     dim=1) if engine.lights else None)
         self.graphs = None
         self.launches = {}
         self.replays = {"primary": 0, "group": 0, "drain": 0}
         self.drained = {"waves": 0, "rays": 0}
-        if dev.type == "cuda" and C:
+        if engine.counted:
+            self.classes = _classes(C)
+            self.ctl = wave_step.new_control(dev)
+            self.ctl_start = wave_step.new_control(dev)
+            self.ctl_start[wave_step.COUNT] = C
+            self.carry = torch.zeros((wave_step.TABLE_ROWS, C),
+                                     dtype=torch.float32, device=dev)
+            self.key = torch.empty(C, dtype=torch.int32, device=dev)
+            self.drain_lanes = (wave_step.drain_lanes(dev)
+                                if dev.type == "cuda" else 0)
+            self.drain_limit = self.drain_lanes
+        if engine.graphed and C:
             self._capture(pool)
+
+    def _camera_rays(self) -> torch.Tensor:
+        """The ray table of the camera rays of ``cam`` from sample
+        ``first_sample`` on: the sample index modulo 2^32 as int32 bits (the
+        JAX uint32), two jitter draws, the primary rays."""
+        state = rng.seed_rays(self.pix, self.samp + self.first_sample,
+                              self.seed)
+        state, u1 = rng.next_uniform(state)
+        state, u2 = rng.next_uniform(state)
+        i = (self.pix % self.width).to(torch.float32)
+        j = (self.pix // self.width).to(torch.float32)
+        org, dirn = generate_primary_rays(self.cam, (i + u1) / self.width,
+                                          (j + u2) / self.height)
+        return wave_step.make_table(org, dirn, state, self.pix, self.samp)
+
+    def render(self, cam_data: torch.Tensor, sample_start: int,
+               stats: dict) -> torch.Tensor:
+        """Radiance [num_samples, H*W, 3] of samples sample_start .. +
+        num_samples, each (sample, pixel) written once; adds the waves and
+        rays traced (shadow waves too) to ``stats`` and the counters."""
+        if not self.capacity:
+            return self.out
+        schedule = self._counted if self.engine.counted else self._uncounted
+        waves, rays = schedule(cam_data, sample_start)
+        for name, n in (("waves", waves), ("rays", rays)):
+            stats[name] = stats.get(name, 0) + n
+            count(name, n)
+        return self.out
+
+    # -- the uncounted schedule ----------------------------------------------
+
+    def _uncounted(self, cam_data, sample_start: int) -> tuple:
+        """The waves, each exactly the live rays: (waves, rays) traced."""
+        engine, steps = self.engine, self.engine.steps
+        with span("frame.rays"):
+            self.cam.copy_(cam_data)
+            self.first_sample.fill_(rng._as_i32(sample_start))
+            self.out.zero_()
+            table = self._camera_rays()
+        traced = [0, 0]
+
+        def trace(o, d, tnear):
+            traced[0] += 1
+            traced[1] += int(o.x.numel())
+            return tracer(self.scene, o, d, tnear)
+
+        n, depth = self.capacity, 0
+        while n:
+            if depth:
+                with span("wavefront.sort"):
+                    key = steps.key(table, self.sort_mode, self.lo,
+                                    self.inv_extent, self.coarse)
+                    perm = torch.sort(key, stable=True).indices[:n]
+                    table = table.index_select(1, perm)
+            tracer = engine.tracers[depth]
+            tnear = 0.0 if depth == 0 else SECONDARY_TNEAR
+            org = wave_step.rows3(table, wave_step.ORG)
+            dirn = wave_step.rows3(table, wave_step.DIR)
+            with span("wavefront.trace"):
+                hit = trace(org, dirn, tnear)
+            with span("wavefront.shade"):
+                rec = engine.record(self.scene, *hit, org, dirn, tnear)
+                if isinstance(rec, tuple):
+                    rec = torch.stack(rec)
+                shadow_t = (self._shadow_waves(rec, trace)
+                            if engine.lights else None)
+                table = steps.shade(table, rec, depth, self.bg,
+                                    self.rr_start_depth, self.max_depth,
+                                    self.out, self.light_rows, shadow_t,
+                                    self.scene.sph_rows,
+                                    self.scene.num_spheres)
+            depth += 1
+            with span("wavefront.count"):
+                live = torch.count_nonzero(table[wave_step.LIVE])
+                with span("frame.read"):
+                    # the one explicit host read a wave: the next wave's size
+                    n = int(live)
+        return tuple(traced)
+
+    def _shadow_waves(self, rec: torch.Tensor, trace) -> torch.Tensor:
+        """The [L, N] closest triangle hit of each ray's shadow ray toward
+        each light (inf where the ray hit nothing, and so cast none): one
+        shadow wave per light through ``trace(org, dirn, tnear)``, over the
+        rays that hit, gathered by ``torch.nonzero``."""
+        n_lights, n = int(self.light_rows.shape[0]), int(rec.shape[1])
+        sdir = self.engine.steps.shadow_rays(rec, self.light_rows)
+        ts = torch.full((n_lights, n), INF, dtype=torch.float32,
+                        device=rec.device)
+        with span("frame.read"):
+            idx = torch.nonzero(rec[0] < INF).reshape(-1)
+        if idx.numel():
+            so = Vec3(rec[4][idx], rec[5][idx], rec[6][idx])
+            for l in range(n_lights):
+                sd = Vec3(*(sdir[l, k][idx] for k in range(3)))
+                ts[l, idx] = trace(so, sd, SECONDARY_TNEAR)[0]
+        return ts
+
+    # -- the counted schedule ------------------------------------------------
 
     def _wave(self, table: torch.Tensor, tnear: float) -> None:
         c = int(table.shape[1])
@@ -666,21 +675,10 @@ class _ChunkWaves:
         wave_step.tally(self.ctl)
 
     def _primary(self) -> None:
-        """The camera rays of ``cam`` from sample ``first_sample`` on, and
-        their wave (depth 0)."""
+        """The camera rays and their wave (depth 0)."""
         self.ctl.copy_(self.ctl_start)
         self.out.zero_()
-        # the sample index modulo 2^32 as int32 bits, as _sample_index
-        state = rng.seed_rays(self.pix, self.samp + self.first_sample,
-                              self.seed)
-        state, u1 = rng.next_uniform(state)
-        state, u2 = rng.next_uniform(state)
-        i = (self.pix % self.width).to(torch.float32)
-        j = (self.pix // self.width).to(torch.float32)
-        org, dirn = generate_primary_rays(self.cam, (i + u1) / self.width,
-                                          (j + u2) / self.height)
-        self._wave(wave_step.make_table(org, dirn, state, self.pix,
-                                        self.samp), 0.0)
+        self._wave(self._camera_rays(), 0.0)
 
     def _group(self, c: int) -> None:
         """GROUP_WAVES secondary waves at capacity class ``c``."""
@@ -695,18 +693,24 @@ class _ChunkWaves:
                                 self.rr_start_depth, self.max_depth,
                                 self.out, self.drain_lanes)
 
+    def _steps(self) -> dict:
+        """The steps of each graph by name: the primary wave, the group of
+        each class above ``drain_limit`` and the drain."""
+        return {"primary": self._primary,
+                **{c: functools.partial(self._group, c)
+                   for c in self.classes if c > self.drain_limit},
+                "drain": self._drain}
+
     def _capture(self, pool) -> None:
         """Run every step once on a side stream (kernel libraries, lazy
-        module loads, the sort's scratch), then capture the primary wave,
-        the group of each class above ``drain_limit`` and the drain into
-        CUDA graphs sharing ``pool``.  Every tensor a graph hands to
-        another is one of the fixed buffers above, so the graphs may
-        replay in any order."""
+        module loads, the sort's scratch), then capture each into a CUDA
+        graph sharing ``pool``.  Every tensor a graph hands to another is
+        one of the fixed buffers above, so the graphs may replay in any
+        order.  A capture launches nothing: what GRAPH_KERNELS' wrappers
+        count during it becomes the graph's own (``launches``, {graph: [B2,
+        W1, W2, W3, drain]}), added to theirs at each replay."""
         dev = self.carry.device
-        fns = {"primary": self._primary}
-        fns.update({c: functools.partial(self._group, c)
-                    for c in self.classes if c > self.drain_limit})
-        fns["drain"] = self._drain
+        fns = self._steps()
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         graphs = {}
@@ -738,22 +742,15 @@ class _ChunkWaves:
                 self.graphs[name].replay()
                 for w, n in zip(GRAPH_KERNELS, self.launches[name]):
                     w.launches += n
-            elif name == "primary":
-                self._primary()
-            elif name == "drain":
-                self._drain()
             else:
-                self._group(name)
+                self._steps()[name]()
         self.replays[name if name in ("primary", "drain") else "group"] += 1
 
-    def render(self, cam_data: torch.Tensor, sample_start: int,
-               stats: dict) -> torch.Tensor:
-        """Radiance [num_samples, H*W, 3] of samples sample_start .. +
-        num_samples, each (sample, pixel) written once; adds the waves and
-        rays traced to ``stats`` and the port's counters ("drain_rays" the
-        rays the drain traced)."""
-        if not self.capacity:
-            return self.out
+    def _counted(self, cam_data, sample_start: int) -> tuple:
+        """The primary wave, then a group or the drain after each read of
+        the control block until no ray is live: (waves, rays) traced; adds
+        the port's counters "drain_rays" (the rays the drain traced) and
+        "graph_waves"."""
         with span("frame.rays"):
             self.cam.copy_(cam_data)
             self.first_sample.fill_(rng._as_i32(sample_start))
@@ -772,30 +769,21 @@ class _ChunkWaves:
             valid = ctl[wave_step.VALID]
             self._run(min(c for c in self.classes if c >= valid))
         waves, rays = ctl[wave_step.WAVES], ctl[wave_step.RAYS]
-        stats["waves"] = stats.get("waves", 0) + waves
-        stats["rays"] = stats.get("rays", 0) + rays
-        count("waves", waves)
-        count("rays", rays)
-        drained = (0, 0) if before_drain is None else (
-            waves - before_drain[wave_step.WAVES],
-            rays - before_drain[wave_step.RAYS])
-        self.drained["waves"] += drained[0]
-        self.drained["rays"] += drained[1]
-        count("drain_rays", drained[1])
+        before = before_drain or ctl            # no drain: nothing drained
+        self.drained["waves"] += waves - before[wave_step.WAVES]
+        self.drained["rays"] += rays - before[wave_step.RAYS]
+        count("drain_rays", rays - before[wave_step.RAYS])
         if self.graphs is not None:
             count("graph_waves", waves)
-        return self.out
+        return waves, rays
 
 
 class WaveCache:
-    """The static state of the fixed-capacity wave loop (``_ChunkWaves``,
-    one a chunk shape), kept on the card from frame to frame by the caller
-    that owns the scene: ``ProgressiveRenderer`` passes its own to
-    ``render_samples_wavefront``.  It holds one frame key, the scene, the
-    frame's size, its slot map, its samples, the seed, the depths and the
-    sort mode; a frame with another key (a new scene or resolution,
-    ``set_samples_per_frame``) drops every chunk and builds anew.  A camera
-    move only rewrites a chunk's camera tensor in place."""
+    """The chunks of a frame's wave loop (``_ChunkWaves``, one a chunk
+    shape), kept from frame to frame by the caller that owns the scene
+    (``ProgressiveRenderer``).  A frame with another key (scene, size, slot
+    map, samples, seed, depths, sort mode or engine) drops every chunk and
+    builds anew; a camera move only rewrites a chunk's camera tensor."""
 
     def __init__(self):
         self._key = None
@@ -805,17 +793,17 @@ class WaveCache:
 
     def begin(self, scene, width: int, height: int, pix_slots,
               num_samples: int, seed: int, max_depth: int,
-              rr_start_depth: int, sort_mode: str) -> torch.Tensor:
+              rr_start_depth: int, sort_mode: str,
+              engine: WaveEngine) -> torch.Tensor:
         """Start a frame: keep the chunks if its key is the last one's,
         else drop them.  Returns the frame's slot map, int32 on the CPU."""
         if pix_slots is not None:
             pix_slots = torch.as_tensor(pix_slots)
-            if pix_slots.device.type != "cpu":
-                with span("frame.read"):
-                    pix_slots = pix_slots.cpu()
-            pix_slots = pix_slots.to(torch.int32)
+            on_card = pix_slots.device.type != "cpu"
+            with span("frame.read") if on_card else NOOP:
+                pix_slots = pix_slots.to("cpu", torch.int32)
         key = (width, height, num_samples, seed, max_depth, rr_start_depth,
-               sort_mode)
+               sort_mode, engine)
         if not self._same(scene, key, pix_slots):
             self._key = (scene, key, pix_slots)
             self._chunks = {}
@@ -846,78 +834,56 @@ class WaveCache:
         return {kind: sum(c.drained[kind] for c in self._chunks.values())
                 for kind in ("waves", "rays")}
 
-    def chunk(self, slots, s0: int, num_samples: int, *args) -> _ChunkWaves:
-        """The chunk of ``slots`` (from slot ``s0`` of the slot map ``begin``
-        returned) and ``num_samples`` samples, built (and on a card
-        captured) at its first use from ``_ChunkWaves``' other arguments
-        ``args``."""
+    def chunk(self, slots, s0: int, num_samples: int, engine: WaveEngine,
+              *args) -> _ChunkWaves:
+        """The chunk of ``slots`` (from slot ``s0`` of ``begin``'s slot map)
+        and ``num_samples`` samples, built (and captured) at its first use
+        from ``_ChunkWaves``' other arguments ``engine`` and ``args``."""
         name = (s0, int(slots.numel()), num_samples)
         if name not in self._chunks:
-            scene, cam_data = args[:2]
-            if self._pool is None and cam_data.device.type == "cuda":
+            if self._pool is None and engine.graphed:
                 self._pool = torch.cuda.graph_pool_handle()
-            self._chunks[name] = _ChunkWaves(slots, num_samples, *args,
-                                             pool=self._pool)
+            self._chunks[name] = _ChunkWaves(slots, num_samples, engine,
+                                             *args, pool=self._pool)
         return self._chunks[name]
 
 
 def render_waves(scene, cam_data: torch.Tensor, width: int, height: int,
                  sample_start: int, num_samples: int, seed: int,
                  max_depth: int, rr_start_depth: int, sort_mode: str,
-                 nee: bool, lo, hi, tracer, record, stats=None,
+                 nee: bool, lo, hi, tracers, record, stats=None,
                  max_rays: int = MAX_RAYS_PER_WAVE, pix_slots=None,
-                 num_real=None, compact_tail: int = 8, tail_trace: str = "",
-                 steps: WaveSteps = STEPS,
+                 num_real=None, steps: WaveSteps = STEPS,
                  cache: WaveCache | None = None) -> torch.Tensor:
     """The wave loop under ``render_samples_wavefront`` and the experiments'
     ``render_samples_mx`` / ``render_samples_mx2``: the radiance SUM of
-    ``num_samples`` passes, [H, W, 3], over a scene whose box is ``lo`` ..
-    ``hi`` (the sort keys' normalization), traced by ``tracer`` and recorded
-    by ``record`` (see ``_render_chunk``).
+    ``num_samples`` passes, [H, W, 3], over ``scene`` (a BrickSet or one of
+    the experiments' sets: anything with ``sph_rows``, ``num_spheres`` and
+    the lights, and ``coarse_boxes`` for the "sig_mort" key), whose box
+    ``lo`` .. ``hi`` normalizes the sort keys.  ``tracers[depth]``, the
+    engine of the waves at each depth below ``max_depth``, is
+    ``tracer(scene, org, dirn, tnear)`` and returns a wave's closest hits
+    as a tuple whose first entry is t; ``record(scene, *hit, org, dirn,
+    tnear)`` makes their 16-channel record ([16, N] or 16 [N] tensors), and
+    ``steps`` (ops/wave_step.py) shade the rays into a new table, write the
+    radiance of the paths that ended and key the next wave.
 
-    With a ``cache`` (``WaveCache``) it runs the fixed-capacity loop
-    instead (``_ChunkWaves``): kernel B2 and ``steps`` = ``STEPS`` on a
-    brick set without NEE's shadow waves, whatever ``tracer``, ``record``,
-    ``steps`` and the ladder's knobs say, the same image bit for bit, with
-    no host read inside a group of waves, and on a card each group
-    replayed from a CUDA graph.  ``render_samples_wavefront`` passes one on
-    a card where those hold.
+    Each chunk of the frame is a ``_ChunkWaves`` of ``cache``, a
+    ``WaveCache`` that a caller rendering frame after frame keeps; its
+    waves run in the schedule ``wave_engine`` picks.  A call without a
+    ``cache`` builds its chunks for itself alone, and runs them uncounted.
 
-    A wave's rays are one ray table (ops/wave_step.py).  After the trace,
-    ``steps`` (default ``wave_step.STEPS``: kernels W1-W3 on a card, their
-    plain versions on the CPU; ``wave_step.PLAIN_STEPS`` runs the plain
-    versions anywhere) record the hits (a brick set's ``record`` is
-    ``steps.record``), shade the rays into a new table (the rows a tracer
-    was given stay as it saw them), write the radiance of the rays whose
-    path ended, and key the next wave; one stable sort and one
-    gather then order it and drop the ended rays.  The live count is the
-    one host read a wave.
-
-    ``compact_tail`` and ``tail_trace`` are the JAX package's compaction
-    ladder: with ``compact_tail > 0`` (and a sort mode other than "none",
-    which turns the ladder off there too) every wave from depth 2 on, its
-    shadow waves included, traces with the engine ``tail_trace`` names
-    (``parse_engine``; "" is ``tracer``).  The ladder's chunks of the JAX
-    package are a pure restructuring, which the compaction after every wave
-    here already does, so any ``compact_tail > 0`` gives the same image.
-
-    ``pix_slots`` (int32, on the camera's device or any) is the slot ->
-    pixel map to render, padding slots holding pixel id ``width*height``;
-    None renders the whole frame's map (``_wave_layout``).  A tile split
-    across devices passes each device its own slice, so the image holds
-    only that slice's pixels.  ``num_real`` (None: all) counts only the
-    first ``min(num_real, num_samples)`` passes from ``sample_start``; only
-    those are rendered, which gives each ray the result of the JAX
-    package's masked passes.
-
-    At most ``max_rays`` rays go into a wave: sample batches beyond it
-    render in chunks of whole samples, and a frame whose single-sample wave
-    already exceeds the cap is also cut along its slots, in runs of whole
-    32 x 128-slot blocks, whose images add (each pixel lies in one slice).
-    ``stats``, a dict, gets the count of traced
-    waves ("waves") and rays ("rays") added to it."""
-    if cache is not None and nee and int(scene.light_pos.shape[0]) > 0:
-        raise ValueError("the fixed-capacity wave loop has no shadow waves")
+    ``pix_slots`` (int32, any device) is the slot -> pixel map to render,
+    padding slots holding pixel id ``width*height``; None renders the whole
+    frame's map (``_wave_layout``), and a tile split across devices passes
+    each its own slice.  ``num_real`` (None: all) renders only the first
+    ``min(num_real, num_samples)`` passes from ``sample_start``, which gives
+    each ray the result of the JAX package's masked passes.  At most
+    ``max_rays`` rays go into a wave: sample batches beyond it render in
+    chunks of whole samples, and a frame whose single-sample wave already
+    exceeds the cap is also cut along its slots, in runs of whole 32 x
+    128-slot blocks, whose images add.  ``stats``, a dict, gets the waves
+    ("waves") and rays ("rays") traced added to it."""
     if sort_mode not in SORT_MODES:
         raise ValueError(f"unknown sort_mode {sort_mode!r}")
     if sort_mode == "sig_mort" and not hasattr(scene, "coarse_boxes"):
@@ -925,56 +891,46 @@ def render_waves(scene, cam_data: torch.Tensor, width: int, height: int,
                          f"boxes; {type(scene).__name__} has none")
     if max_depth < 1:
         raise ValueError("need max_depth >= 1")
-    if compact_tail < 0:
-        raise ValueError("need compact_tail >= 0")
-    tail = engine_tracer(tail_trace) if tail_trace else tracer
-    ladder = compact_tail > 0 and sort_mode != "none"
     dev = cam_data.device
     if scene.device != dev:
         raise ValueError(f"scene on {scene.device}, camera on {dev}")
     stats = {} if stats is None else stats
     if num_real is not None:
         num_samples = max(0, min(num_real, num_samples))
+    engine = wave_engine(cache is not None, tracers, record, steps,
+                         nee and int(scene.light_pos.shape[0]) > 0, dev)
+    cache = cache or WaveCache()
     with span("frame.layout"):
-        if cache is not None:
-            pix_slots = cache.begin(scene, width, height, pix_slots,
-                                    num_samples, seed, max_depth,
-                                    rr_start_depth, sort_mode)
-        else:
-            light_rows = None
-            if nee and int(scene.light_pos.shape[0]) > 0:
-                light_rows = torch.cat([scene.light_pos,
-                                        scene.light_intensity], dim=1)
-            bg = torch.stack([scene.bg_r, scene.bg_g,
-                              scene.bg_b]).to(torch.float32)
-            lo = lo.to(torch.float32).contiguous()
-            inv_extent = 1.0 / torch.clamp_min(hi - lo, 1e-12)
-            if pix_slots is None:
-                pix_slots = torch.from_numpy(_wave_layout(width, height)[0])
-            pix_slots = torch.as_tensor(pix_slots)
-            # an upload from host memory waits for the card's queue
-            with span("frame.read") if pix_slots.device != dev else NOOP:
-                pix_slots = pix_slots.to(dtype=torch.int32, device=dev)
+        pix_slots = cache.begin(scene, width, height, pix_slots, num_samples,
+                                seed, max_depth, rr_start_depth, sort_mode,
+                                engine)
         acc = torch.zeros((height, width, 3), dtype=torch.float32,
                           device=dev)
 
     for s0, n, done, ns in _chunks(int(pix_slots.numel()), num_samples,
                                    max_rays):
-        if cache is not None:
-            out = cache.chunk(
-                pix_slots[s0:s0 + n], s0, ns, scene, cam_data, width, height,
-                seed, max_depth, rr_start_depth, sort_mode, lo, hi,
-            ).render(cam_data, sample_start + done, stats)
-        else:
-            out = _render_chunk(
-                scene, cam_data, width, height, pix_slots[s0:s0 + n],
-                sample_start + done, ns, seed, max_depth, rr_start_depth,
-                sort_mode, light_rows, bg, lo, inv_extent,
-                lambda depth: tail if ladder and depth >= 2 else tracer,
-                record, steps, stats)
+        out = cache.chunk(
+            pix_slots[s0:s0 + n], s0, ns, engine, scene, cam_data, width,
+            height, seed, max_depth, rr_start_depth, sort_mode, lo, hi,
+        ).render(cam_data, sample_start + done, stats)
         with span("frame.sum"):
             acc += out.sum(dim=0).reshape(height, width, 3)
     return acc
+
+
+def _depth_tracers(trace: str, tail_trace: str, compact_tail: int,
+                   sort_mode: str, max_depth: int, tracer=None) -> tuple:
+    """The trace of the waves at each depth below ``max_depth``: ``tracer``
+    or engine ``trace``'s, from depth 2 on engine ``tail_trace``'s ("":
+    the same) while the ladder is on (``compact_tail > 0``, a sort)."""
+    engine = engine_tracer(trace)
+    if compact_tail < 0:
+        raise ValueError("need compact_tail >= 0")
+    first = tracer or engine
+    tail = engine_tracer(tail_trace) if tail_trace else first
+    ladder = compact_tail > 0 and sort_mode != "none"
+    return tuple(tail if ladder and depth >= 2 else first
+                 for depth in range(max_depth))
 
 
 def render_samples_wavefront(brickset: BrickSet, cam_data: torch.Tensor,
@@ -993,41 +949,25 @@ def render_samples_wavefront(brickset: BrickSet, cam_data: torch.Tensor,
     """Large-scene drop-in for ops.integrator.render_samples: the radiance
     SUM of ``num_samples`` passes, [H, W, 3], on ``cam_data``'s device.
 
-    ``trace`` names the per-wave engine of the closest-hit and the shadow
-    waves ("slim", kernel B2, "slim2", kernel B4, "pairs[N]", kernel B5;
-    see ``parse_engine``), and ``tail_trace`` the engine of the waves from
-    depth 2 on while ``compact_tail > 0`` (the JAX package's compaction
-    ladder; any ``compact_tail > 0`` gives the same image, see
-    ``render_waves``).  ``sort_mode`` picks the inter-wave key
-    ("sig_mort", "mort_oct" or "none").  ``tracer(bricks, org, dirn,
-    tnear) -> (t, slot)`` replaces ``trace``'s per-wave trace, and
-    ``steps`` the bounce step's kernels (the chip smoke passes plain
-    versions to hold the kernels to them).  ``stats``, a dict, gets the
-    count of traced waves ("waves") and rays ("rays") added to it.
-    ``pix_slots`` and ``num_real`` pick the slots and the passes that count
-    (see ``render_waves``).
-
-    On a card, with kernel B2 the engine of every wave (``trace`` and
-    ``tail_trace`` "slim[N]" or "slimg[N]", ``tail_trace`` also "", no
-    ``tracer``), the bounce step's kernels (``steps`` ``STEPS``) and no
-    light sampled, the waves run in the fixed-capacity loop
-    (``render_waves``' ``cache``), the same image bit for bit: its static
-    state is ``wave_cache``, which a caller that renders frame after frame
-    keeps (``ProgressiveRenderer`` does).  A call without one runs the
-    live-prefix loop, which builds nothing to keep."""
-    engine = engine_tracer(trace)
+    ``trace`` names the engine of the closest-hit and shadow waves
+    (``parse_engine``: "slim", kernel B2, "slim2", B4, "pairs[N]", B5) and
+    ``tail_trace`` that of the waves from depth 2 on while the JAX
+    package's compaction ladder is on (``_depth_tracers``; any
+    ``compact_tail > 0`` gives the same image).  ``sort_mode`` picks the
+    inter-wave key ("sig_mort", "mort_oct" or "none").  ``tracer(bricks,
+    org, dirn, tnear) -> (t, slot)`` replaces ``trace``'s per-wave trace,
+    and ``steps`` the bounce step's kernels (the chip smoke passes plain
+    versions to hold the kernels to them); ``stats``, ``pix_slots`` and
+    ``num_real`` are ``render_waves``'.  ``wave_cache``, the wave loop's
+    state that a caller rendering frame after frame keeps
+    (``ProgressiveRenderer`` does), runs the waves counted where
+    ``wave_engine`` says so, the same image bit for bit."""
+    tracers = _depth_tracers(trace, tail_trace, compact_tail, sort_mode,
+                             max_depth, tracer)
     # scene box = the top tree's root node
     root = brickset.top_boxes[0, :6]
-    fixed = (wave_cache is not None and cam_data.device.type == "cuda"
-             and tracer is None and steps is STEPS
-             and parse_engine(trace)[0] in FIXED_ENGINES
-             and (not tail_trace
-                  or parse_engine(tail_trace)[0] in FIXED_ENGINES)
-             and not (nee and int(brickset.light_pos.shape[0]) > 0))
-    cache = wave_cache if fixed else None
     return render_waves(brickset, cam_data, width, height, sample_start,
                         num_samples, seed, max_depth, rr_start_depth,
-                        sort_mode, nee, root[:3], root[3:], tracer or engine,
+                        sort_mode, nee, root[:3], root[3:], tracers,
                         steps.record, stats, pix_slots=pix_slots,
-                        num_real=num_real, compact_tail=compact_tail,
-                        tail_trace=tail_trace, steps=steps, cache=cache)
+                        num_real=num_real, steps=steps, cache=wave_cache)

@@ -212,9 +212,9 @@ def render_samples_sharded(scene, cam_data: torch.Tensor, width: int,
     ("sig_mort" for the wavefront, "mort_oct" for "mx" and "mx2", whose sets
     have no signature boxes; there "sig_mort" also sorts by "mort_oct", as
     the JAX package's "mx" paths do).  CUDA tensors launch the kernels, CPU
-    tensors run their plain versions.  ``wave_cache`` is the wavefront's
-    static state on the card (``render_samples_wavefront``), which a caller
-    that renders frame after frame keeps, one a rank."""
+    tensors run their plain versions.  ``wave_cache`` is the wave loop's
+    state kept from frame to frame (``render_samples_wavefront``), which a
+    caller that renders frame after frame keeps, one a rank."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; one of {MODES}")
     if mode == "bricks" and nee:

@@ -42,7 +42,8 @@ from ..ops import integrator
 from ..ops.brickkernel import render_samples_bricks
 from ..ops.camera import Camera, camera_ray_data
 from ..ops.megakernel import MEGAKERNEL_MAX_PRIMS, render_samples_megakernel
-from ..ops.wavefront import WaveCache, parse_engine, render_samples_wavefront
+from ..ops.wavefront import (WaveCache, render_samples_wavefront,
+                             trace_kernels)
 from ..utils import image as img_util
 from ..utils.config import RenderConfig
 from ..utils.trace import setup_span, span
@@ -113,13 +114,10 @@ class ProgressiveRenderer:
             # the persistent brick render has no NEE hook; the sorted
             # wavefront (same BrickSet) has
             self.mode = "wavefront"
-        walks = self.mode == "bricks"
-        if self.mode == "wavefront":
-            # raises on a bad name; "slim[N]" and "slimg[N]" run kernel B2
-            engines = [parse_engine(config.wavefront_trace)[0]]
-            if config.wavefront_tail_trace:
-                engines.append(parse_engine(config.wavefront_tail_trace)[0])
-            walks = "slim" in engines or "slimg" in engines
+        walks = self.mode == "bricks" or (
+            # raises on a bad engine name
+            self.mode == "wavefront" and "B2" in trace_kernels(
+                config.wavefront_trace, config.wavefront_tail_trace))
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             # never fall back to another device
@@ -149,8 +147,8 @@ class ProgressiveRenderer:
             self.scene.walk_table()
         self.sample_count = 0
         self.frame_ms = 0.0
-        # the wavefront's static frame state on the card (slot map, ray
-        # table, captured graphs), rebuilt when its key changes
+        # the wave loop's chunks kept from frame to frame (slot map, ray
+        # tables, captured graphs), rebuilt when their key changes
         self._wave_cache = WaveCache()
 
     @classmethod

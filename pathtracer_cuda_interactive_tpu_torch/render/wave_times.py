@@ -1,15 +1,15 @@
-"""Each wave's live count and device times in the wavefront's live-prefix
-loop on one CUDA card: the size of the wave loop's tail.
+"""Each wave's live count and device times in the wave loop's uncounted
+schedule on one CUDA card: the size of the wave loop's tail.
 
 The large scene (scenes/blob_box.xml subdivided three levels, 327,692
-triangles) at 640x480, depth 50, through the live-prefix loop
+triangles) at 640x480, depth 50, through the uncounted schedule
 (``render_samples_wavefront`` without a wave cache): a 2-sample frame, and
 the first chunk of a 10-sample frame (6 samples, 1,843,200 camera rays).
 CUDA events around each wave's trace (kernel B2) and its step (before the
 trace: W3's key, the stable sort and the gather; after it: W1 and W2),
 the median of ``--repeats`` frames at one sample index after a warm-up
 frame.  Then the drain's resident lanes (``wave_step.drain_lanes``) and,
-for the multiples 1 and 2 of them, what the fixed-capacity loop would
+for the multiples 1 and 2 of them, what the counted schedule would
 leave to the drain: the waves from its first host read (before waves 1,
 5, 9, ...: one a group of ``GROUP_WAVES``) whose live count is at most the
 threshold, their rays, B2 and step times, and every wave at or under the
@@ -45,7 +45,7 @@ FRAMES = {"spf2 frame": 2, "spf10 first chunk": 6}
 
 def wave_times(bricks, cd, samples: int) -> list:
     """[{rays, b2_ms, step_ms}] of each wave of one frame of ``samples``
-    samples (one chunk) through the live-prefix loop."""
+    samples (one chunk) through the uncounted schedule."""
     waves, cur = [], {}
 
     def event():
@@ -85,7 +85,7 @@ def wave_times(bricks, cd, samples: int) -> list:
 
 
 def tail(rows: list, limit: int) -> dict:
-    """What the fixed-capacity loop would leave to a drain at ``limit``:
+    """What the counted schedule would leave to a drain at ``limit``:
     the waves from the first host read (before wave 1 + k GROUP_WAVES)
     whose live count is at most ``limit``, and every wave at or under
     it."""

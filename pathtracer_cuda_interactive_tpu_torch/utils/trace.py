@@ -7,27 +7,26 @@ Under the profiler the ranges sit on Kineto's host clock, the clock the
 device's kernels and copies are put on, so each gap in the device's work
 can be put down to the span open at that moment.  The spans of a frame:
 
-* ``frame.layout``: ``render_waves``' constants, slot map and its upload;
-* ``frame.rays``: a chunk's camera rays, from the slots repeated over the
-  samples to the radiance buffer (padding mask, seeds, uniforms, primary
-  rays, ray table);
+* ``frame.layout``: ``render_waves``' slot map and image buffer;
+* ``frame.rays``: a chunk's camera and first sample, and in the uncounted
+  schedule its camera rays (seeds, uniforms, primary rays, ray table);
 * ``frame.sum``: a chunk's sum over its samples, added to the image;
 * ``frame.launch``: the host side of a one-launch frame (B1, B6);
 * ``frame.accumulate``: ``accum += new``, once a step;
-* ``frame.read``: each wait of the host on the card — the live count a
-  wave, the padding mask's two gathers, the shadow waves' ``nonzero``, a
-  blocking upload of the slot map; in the fixed-capacity loop the control
-  block once a group of waves; the one ``frame.*`` span that opens
-  inside another;
+* ``frame.read``: each wait of the host on the card — in the wave loop's
+  uncounted schedule the live count a wave and the shadow waves'
+  ``nonzero``, in its counted schedule the control block once a group of
+  waves, and a chunk's blocking upload of its columns when it is built;
+  the one ``frame.*`` span that opens inside another;
 
-beside the wave loop's ``wavefront.sort``, ``.trace``, ``.shade`` and
-``.count`` (ops/wavefront.py), and in its fixed-capacity loop
+beside the uncounted schedule's ``wavefront.sort``, ``.trace``, ``.shade``
+and ``.count`` (ops/wavefront.py), and the counted schedule's
 ``wavefront.replay``, the host side of each graph's replay (or, on the
 CPU, of running its steps).  While a profiler records, every span also
 adds its count and host seconds to a total by name (``totals()``), and
 ``count(name, n)`` adds to a counter by name (``counts()``: "waves" and
 "rays" from the wave loop, "graph_waves" the waves run inside a graph's
-replay, "drain_rays" the rays the fixed-capacity loop's drain traced):
+replay, "drain_rays" the rays the counted schedule's drain traced):
 one entry a name, so a long viewer run grows nothing, and nothing at all
 while no profiler records.
 

@@ -3,10 +3,12 @@ the count of its host reads against the syncs that PyTorch reports.
 
 With no profiler recording, ``span`` hands out one shared no-op context
 and opens no ``record_function``.  Under ``torch.profiler`` a wavefront
-frame shows its ``frame.*`` spans once each inside the step, the wave
-loop's four ranges a wave, and one ``frame.read`` a wave plus the padding
-mask's two gathers; a one-launch frame shows ``frame.launch``; a build
-fills the set-up record.  The ``cuda`` case skips here and runs on a card
+frame shows its ``frame.*`` spans once each inside the step; in the wave
+loop's uncounted schedule (here engine "slim2") its four ranges a wave and
+one ``frame.read`` a wave, in the counted one (the CPU renderer's default)
+a ``wavefront.replay`` a group of waves and one read after each; a
+one-launch frame shows ``frame.launch``; a build fills the set-up
+record.  The ``cuda`` case skips here and runs on a card
 with ``python -m pytest --noconftest -m cuda tests/test_torch_trace.py``.
 """
 
@@ -75,9 +77,9 @@ def _profiled_step(r):
 
 @pytest.fixture(scope="module")
 def wave_frame():
-    """A 64x48 wavefront frame of blob_box at depth 4, after one frame
-    outside the profiler."""
-    r = _renderer(BLOB_BOX, 64, 48)
+    """A 64x48 wavefront frame of blob_box at depth 4 in the uncounted
+    schedule (engine "slim2"), after one frame outside the profiler."""
+    r = _renderer(BLOB_BOX, 64, 48, wavefront_trace="slim2")
     assert r.mode == "wavefront"
     r.step()
     return _profiled_step(r)
@@ -140,14 +142,29 @@ def test_wavefront_frame_spans(wave_frame):
 
 
 def test_reads_are_the_waves_and_the_mask_gathers(wave_frame):
+    """One read a wave, its live count; the kept chunk's slot map (the
+    padding mask) was gathered and uploaded when it was built."""
     ranges, _, waves, added, counted = wave_frame
-    assert len(ranges["frame.read"]) == waves + 2
-    (rs, re_), = ranges["frame.rays"]
-    assert sum(rs <= s and e <= re_ for s, e in ranges["frame.read"]) == 2
+    assert len(ranges["frame.read"]) == waves
     counts = ranges["wavefront.count"]
     assert all(any(cs <= s and e <= ce for cs, ce in counts)
-               for s, e in ranges["frame.read"] if not rs <= s <= re_)
+               for s, e in ranges["frame.read"])
     assert counted["waves"] == waves and counted["rays"] > 0
+
+
+def test_counted_frame_reads_the_control_block_once_a_group():
+    """The CPU renderer's default frame runs counted: a replay span a
+    group (here the primary wave and one group of four, depth 4) and one
+    read after each, no per-wave range, no graph."""
+    r = _renderer(BLOB_BOX, 32, 24)
+    r.step()
+    ranges, (t0, t1), waves, _, counted = _profiled_step(r)
+    for name in ("frame.layout", "frame.rays", "frame.sum",
+                 "frame.accumulate"):
+        assert len(ranges[name]) == 1, name
+    assert not any(n in ranges for n in WAVE_RANGES)
+    assert len(ranges["wavefront.replay"]) == len(ranges["frame.read"]) == 2
+    assert counted["waves"] == waves > 1 and "graph_waves" not in counted
 
 
 def test_nee_adds_a_shadow_read_a_wave():
@@ -159,7 +176,7 @@ def test_nee_adds_a_shadow_read_a_wave():
     # a nonzero gather a wave, then a shadow wave of the rays that hit
     # (one light)
     assert primary < waves <= 2 * primary and counted["waves"] == waves
-    assert len(ranges["frame.read"]) == 2 * primary + 2
+    assert len(ranges["frame.read"]) == 2 * primary
 
 
 @pytest.mark.parametrize("mode", ["megakernel", "bricks"])
@@ -238,7 +255,7 @@ def test_every_host_sync_is_a_read_span(mode):
     where = Counter(f"{w.filename}:{w.lineno}" for w in syncs)
     assert reads == len(syncs), (reads, where)
     if mode == "wavefront":
-        # the fixed-capacity loop: a read after the primary wave and one
+        # the counted schedule: a read after the primary wave and one
         # after the group of secondary waves that reaches depth 4
         assert reads == 3 * 2
     elif mode == "wavefront-nee":

@@ -1,12 +1,13 @@
-"""The fixed-capacity wave loop's drain (ops/wavefront.py::_ChunkWaves,
-ops/wave_step.py::drain_plain and the kernel ``wave_drain``): at a host
-read whose live count is at most the chunk's ``drain_limit``, every live
-path of the carried table is carried to its end at once.
+"""The drain of the wave loop's counted schedule (ops/wavefront.py::
+_ChunkWaves, ops/wave_step.py::drain_plain and the kernel ``wave_drain``):
+at a host read whose live count is at most the chunk's ``drain_limit``,
+every live path of the carried table is carried to its end at once.
 
-On the CPU the loop runs its plain steps and ``drain_plain``: with the
-drain forced at the first read and at a middle read, the image, waves and
-rays equal the live-prefix loop's bit for bit (the loop that never drains,
-the CPU's default, is held to it in tests/test_torch_wave_graphs.py);
+On the CPU the counted schedule runs its plain steps and ``drain_plain``:
+with the drain forced at the first read and at a middle read, the image,
+waves and rays equal the uncounted schedule's bit for bit (the counted
+schedule that never drains, the CPU's default, is held to it in
+tests/test_torch_wave_graphs.py);
 ``drain_plain``
 on a carried table equals the sorted waves run one by one through the
 plain counted steps (radiance, waves, rays, depth), and the port's
@@ -53,33 +54,40 @@ def _camera(cam, width, height, device="cpu"):
     return torch.from_numpy(camera_ray_data(cam, width, height)).to(device)
 
 
+# kernel B2 at every depth: with a kept cache, the counted schedule
+TRACERS = (wavefront.trace_wave_slim,) * DEPTH
+
+
 def _chunk(bricks, cd, width, height, spp, sort_mode):
-    """A WaveCache holding the one chunk of a frame, built before the
-    frame, and that chunk."""
+    """A WaveCache holding the one chunk of a frame in the counted
+    schedule, built before the frame, and that chunk."""
     root = bricks.top_boxes[0, :6]
     cache = wavefront.WaveCache()
+    engine = wavefront.wave_engine(True, TRACERS, wave_step.STEPS.record,
+                                   wave_step.STEPS, False, cd.device)
     slots = cache.begin(bricks, width, height, None, spp, SEED, DEPTH, RR,
-                        sort_mode)
-    chunk = cache.chunk(slots, 0, spp, bricks, cd, width, height, SEED,
-                        DEPTH, RR, sort_mode, root[:3], root[3:])
+                        sort_mode, engine)
+    chunk = cache.chunk(slots, 0, spp, engine, bricks, cd, width, height,
+                        SEED, DEPTH, RR, sort_mode, root[:3], root[3:])
+    assert chunk.engine.counted
     return cache, chunk
 
 
 def _frame(bricks, cd, width, height, spp, sort_mode, stats, cache=None):
-    """The frame through the fixed-capacity loop of ``cache``, or without
-    one through the live-prefix loop."""
+    """The frame through the counted schedule of ``cache``, or without one
+    through the uncounted schedule."""
     root = bricks.top_boxes[0, :6]
     return wavefront.render_waves(
         bricks, cd, width, height, 0, spp, SEED, DEPTH, RR, sort_mode, False,
-        root[:3], root[3:], wavefront.trace_wave_slim, wave_step.record_plain,
-        stats=stats, steps=wave_step.PLAIN_STEPS, cache=cache)
+        root[:3], root[3:], TRACERS, wave_step.STEPS.record, stats=stats,
+        cache=cache)
 
 
 _refs = {}
 
 
 def _ref(blob, sort_mode):
-    """The live-prefix loop's 32x24, 2-sample frame and its stats."""
+    """The uncounted schedule's 32x24, 2-sample frame and its stats."""
     if sort_mode not in _refs:
         bricks, cam = blob
         stats = {}

@@ -1,24 +1,28 @@
-"""The wavefront's fixed-capacity wave loop (ops/wavefront.py::WaveCache,
-``_ChunkWaves``) against the live-prefix loop (``_render_chunk``).
+"""The wave loop's two schedules (ops/wavefront.py::_ChunkWaves): the
+counted one, which a kept ``WaveCache`` runs, against the uncounted one,
+which a call without a cache runs, and the choice between them
+(``wave_engine``).
 
-On the CPU the fixed-capacity loop runs eagerly with the plain versions of
+On the CPU the counted schedule runs eagerly with the plain versions of
 its counted steps (ops/wave_step.py::record_counted, ``shade_counted``,
 ``key_counted``, ``tally``; ``wavefront.trace_wave_counted``): the same
-image bit for bit and the same waves and rays, in every sort mode and on a
-slice of the slot map; a column at or past the live count keys to
-INT32_MAX whatever it holds.
+image bit for bit and the same waves and rays, through ``render_waves``
+with and without a kept cache, in every sort mode and on a slice of the
+slot map; a column at or past the live count keys to INT32_MAX whatever it
+holds.  The choice: counted exactly where the cache is kept, kernel B2
+traces every depth, the steps are ``STEPS`` and no light is sampled, and
+graphed where, besides, the tensors are on a card.
 
 The cases marked ``cuda`` skip without a card and import no jax, so on the
 card this file runs with ``python -m pytest --noconftest -m cuda
-tests/test_torch_wave_graphs.py``: the graph path against the live-prefix
-loop (the same kernels, reached through an explicit ``tracer``) bit for
-bit at 640x480 with 2 and 10 samples a frame (two chunks), the drain
-engaged, in every sort mode and on a tile slice; each kernel's launches
-against the graphs replayed (one wave a primary graph, GROUP_WAVES a
-group, the drain's own launch a drain), and the waves traced within them
-and the drain's; a renderer's state kept over camera moves and rebuilt by
-``set_samples_per_frame``, and no capture after a chunk shape's first
-frame; the share of waves replayed from graphs, and none with NEE or
+tests/test_torch_wave_graphs.py``: the graph path against the uncounted
+schedule bit for bit at 640x480 with 2 and 10 samples a frame (two
+chunks), the drain engaged, in every sort mode and on a tile slice; each
+kernel's launches against the graphs replayed (one wave a primary graph,
+GROUP_WAVES a group, the drain's own launch a drain), and the waves traced
+within them and the drain's; a renderer's state kept over camera moves and
+rebuilt by ``set_samples_per_frame``, and no capture after a chunk shape's
+first frame; the share of waves replayed from graphs, and none with NEE or
 ``slim2``; W3's counted keys and live count.
 """
 
@@ -53,13 +57,15 @@ def _load(width, height, device="cpu"):
 
 def _fixed(bricks, cd, width, height, start, spp, sort_mode, stats,
            pix_slots=None, cache=None):
-    """The fixed-capacity loop through ``render_waves``' ``cache``: on the
-    CPU the eager loop over the plain counted steps."""
+    """The frame through ``render_waves``, kernel B2 at every depth: with a
+    kept ``cache`` the counted schedule (on the CPU the eager loop over the
+    plain counted steps), without one the uncounted schedule."""
     root = bricks.top_boxes[0, :6]
     return wavefront.render_waves(
         bricks, cd, width, height, start, spp, 1984, 50, 5, sort_mode, False,
-        root[:3], root[3:], None, None, stats=stats, pix_slots=pix_slots,
-        cache=cache or wavefront.WaveCache())
+        root[:3], root[3:], (wavefront.trace_wave_slim,) * 50,
+        wave_step.STEPS.record, stats=stats, pix_slots=pix_slots,
+        cache=cache)
 
 
 @pytest.fixture(scope="module")
@@ -80,11 +86,12 @@ def test_fixed_capacity_matches_the_live_prefix_loop(blob_cpu, width, height,
     slots = torch.from_numpy(wavefront._wave_layout(width, height)[0])
     pix_slots = slots[:slots.numel() // 2] if half else None
     ref_stats, stats = {}, {}
-    ref = wavefront.render_samples_wavefront(
-        bricks, cd, width, height, 3, 2, sort_mode=sort_mode,
-        stats=ref_stats, pix_slots=pix_slots)
-    got = _fixed(bricks, cd, width, height, 3, 2, sort_mode, stats,
+    ref = _fixed(bricks, cd, width, height, 3, 2, sort_mode, ref_stats,
                  pix_slots)
+    cache = wavefront.WaveCache()
+    got = _fixed(bricks, cd, width, height, 3, 2, sort_mode, stats,
+                 pix_slots, cache)
+    assert [c.engine.counted for c in cache._chunks.values()] == [True]
     assert torch.equal(got, ref)
     assert stats == ref_stats and ref_stats["waves"] > 10
     assert ref.abs().sum() > 0
@@ -92,15 +99,46 @@ def test_fixed_capacity_matches_the_live_prefix_loop(blob_cpu, width, height,
 
 def test_fixed_capacity_slots_without_a_ray(blob_cpu):
     """A slot map of padding alone (a tile split's empty rank) renders
-    nothing, in both loops."""
+    nothing, in both schedules."""
     bricks, cam, _ = blob_cpu
     cd = torch.from_numpy(camera_ray_data(cam, 64, 48))
     slots = torch.full((wavefront.BLOCK_SLOTS,), 64 * 48, dtype=torch.int32)
     stats = {}
-    got = _fixed(bricks, cd, 64, 48, 0, 2, "sig_mort", stats, slots)
+    got = _fixed(bricks, cd, 64, 48, 0, 2, "sig_mort", stats, slots,
+                 wavefront.WaveCache())
     ref = wavefront.render_samples_wavefront(bricks, cd, 64, 48, 0, 2,
                                              stats=stats, pix_slots=slots)
     assert not got.any() and not ref.any() and stats == {}
+
+
+def _custom_tracer(scene, org, dirn, tnear):
+    return wavefront.trace_wave_slim(scene, org, dirn, tnear)
+
+
+@pytest.mark.parametrize("tail_trace", ["", "slim2"])
+@pytest.mark.parametrize("compact_tail", [0, 8])
+@pytest.mark.parametrize("kept", [False, True])
+@pytest.mark.parametrize("lights", [False, True])
+@pytest.mark.parametrize("steps", ["STEPS", "PLAIN_STEPS"])
+@pytest.mark.parametrize("engine", ["slim", "slimg8", "slim2", "pairs",
+                                    "custom"])
+def test_the_schedule_is_chosen_from_what_the_loop_sees(
+        engine, steps, lights, kept, compact_tail, tail_trace):
+    """Counted exactly where the cache is kept, kernel B2 traces every
+    depth (a custom tracer does not, even one that calls B2; the tail
+    engine only while the ladder runs it), the steps are ``STEPS`` and no
+    light is sampled; graphed where, besides, the tensors are on a card."""
+    custom = engine == "custom"
+    tracers = wavefront._depth_tracers(
+        "slim" if custom else engine, tail_trace, compact_tail, "sig_mort",
+        50, _custom_tracer if custom else None)
+    steps = getattr(wave_step, steps)
+    b2 = engine in ("slim", "slimg8") and not (tail_trace and compact_tail)
+    counted = kept and b2 and steps is wave_step.STEPS and not lights
+    for device, graphed in (("cpu", False), ("cuda", counted)):
+        chosen = wavefront.wave_engine(kept, tracers, steps.record, steps,
+                                       lights, torch.device(device))
+        assert (chosen.counted, chosen.graphed) == (counted, graphed)
 
 
 def test_counted_keys_past_the_count_are_the_sentinel(blob_cpu):
@@ -243,7 +281,7 @@ def test_cuda_state_kept_over_camera_moves_and_rebuilt_for_spf(monkeypatch):
     assert len(captures) > first
     assert not set(map(id, r._wave_cache._chunks.values())) \
         & set(map(id, chunks.values()))
-    # the frame equals the live-prefix loop's at that camera and sample
+    # the frame equals the uncounted schedule's at that camera and sample
     new = r.accum.clone()
     ref = wavefront.render_samples_wavefront(
         r.scene, r._cam_data, 640, 480, 0, 2,
