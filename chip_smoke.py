@@ -67,18 +67,22 @@ JAX, and fails with a non-zero exit code if any phase fails:
    each image and its waves and rays equal bit for bit to 3i's frame
    through the uncounted schedule (no cache kept), each
    graph holding one launch of B2, W1, W2 and W3 a wave and the drain's
-   graph one launch of the drain; then B2 and W1-W3 in their counted form
-   (a device-side live count, ``ctl``) on the sorted first-bounce wave and
-   on the first wave with fewer rays than the chunk, each laid in its
-   capacity class: the live columns bit for bit the plain launch's, W3's
-   keys past them INT32_MAX, each timed beside the plain launch;
+   graph one launch of the drain, and a group captured for the chunk's
+   full width alone (``wavefront._drains``: a read drains where its live
+   paths fit GROUP_WAVES rounds of the drain's resident lanes, or where
+   its group would run past the roulette's start); then B2 and W1-W3
+   in their counted form (a device-side live count, ``ctl``) on the sorted
+   first-bounce wave and on the first wave with fewer rays than the chunk,
+   each laid in its capacity class: the live columns bit for bit the
+   plain launch's, W3's keys past them INT32_MAX, each timed beside the
+   plain launch;
 3k. the drain (csrc/wave_step.cu::wave_drain) on the carried table of
-   that frame at the first host read whose live count is at most the
-   card's threshold: the radiance and the control block bit for bit
-   ``drain_plain`` through the wave's own kernels (B2, W1, W2, level by
-   level), the fully plain ``drain_plain`` within W2's criterion (rtol
-   1e-4) on all but 1e-3 of the drained paths; the kernel timed by CUDA
-   events beside its bound and the plain version's time;
+   that frame at the first host read the rule drains: the radiance and
+   the control block bit for bit ``drain_plain`` through the wave's own
+   kernels (B2, W1, W2, level by level), the fully plain ``drain_plain``
+   within W2's criterion (rtol 1e-4) on all but 1e-3 of the drained
+   paths, and its largest difference; the kernel timed by CUDA events
+   beside its bound and the plain version's time;
 3e. kernel B4 (B2's walk with the deferred leaf, engine "slim2") on the
    four waves of 3b: t and slot equal to its plain version over the walk
    table and to kernel B2 bit for bit; whole wavefront renders at 160x120
@@ -1992,12 +1996,19 @@ def main(argv=None) -> int:
     held = all(n == graph_holds(name)
                for c in chunks for name, n in c.launches.items())
     drained = wave_cache.drained()
+    # the classes each chunk captured a group for: here the chunk's full
+    # width alone, which the first read picks; every later read drains, as
+    # its group would run past the roulette's start
+    groups = [[n for n in c.launches if n not in ("primary", "drain")]
+              for c in chunks]
     print(f"counted schedule {MAIN_W}x{MAIN_H} spf {SPP} depth 50: "
           f"{len(chunks)} chunk(s) of {[c.capacity for c in chunks]} rays, "
           f"classes {[c.classes for c in chunks]}, drain at or under "
-          f"{[c.drain_limit for c in chunks]} live rays "
-          f"({[c.drain_lanes for c in chunks]} resident lanes); frames "
-          f"(capture, replay) equal to the uncounted frame bit for bit "
+          f"{[K * c.drain_lanes for c in chunks]} live rays (GROUP_WAVES "
+          f"rounds of {[c.drain_lanes for c in chunks]} resident lanes) "
+          f"or from depth {chunks[0].rr_start_depth - K + 2} on, groups "
+          f"captured {groups}; frames (capture, replay) equal to the "
+          f"uncounted frame bit for bit "
           f"{[f['equal'] for f in graph_frames]}, waves and rays "
           f"{[f['stats'] for f in graph_frames]} against {ref_stats}, "
           f"replays {graph_frames[-1]['replays']}, the drains' waves and "
@@ -2006,6 +2017,7 @@ def main(argv=None) -> int:
     replays = graph_frames[-1]["replays"]
     if not (all(f["equal"] and f["stats"] == ref_stats
                 for f in graph_frames) and held
+            and groups == [[c.capacity] for c in chunks]
             and all(c.engine.graphed for c in chunks)
             and replays["primary"] == 2 * len(chunks)
             and replays["drain"] == 2 * len(chunks)
@@ -2014,7 +2026,9 @@ def main(argv=None) -> int:
                          "counted and graphed, their frame is "
                          "not the uncounted one's, its graphs do not "
                          "hold one launch of B2, W1, W2 and W3 a wave and "
-                         "the drain's one of the drain, or no frame drained")
+                         "the drain's one of the drain, a group was "
+                         "captured for another class than the chunk's "
+                         "width, or no frame drained")
 
     def counted_form(wave):
         """B2 and W1-W3 on wave ``wave`` of 3i's frame, its n rays laid in
@@ -2114,12 +2128,13 @@ def main(argv=None) -> int:
 
     stamp("3j done")
     # -- 3k. the drain on the carried table of 3j's frame at the first read
-    # at or under the card's threshold, against drain_plain
+    # the rule drains, against drain_plain
     chunk = chunks[0]
     chunk.cam.copy_(cd)
     chunk.first_sample.zero_()
     chunk._primary()
-    while int(chunk.ctl[ws.COUNT]) > chunk.drain_limit:
+    while not wf._drains(int(chunk.ctl[ws.COUNT]), int(chunk.ctl[ws.DEPTH]),
+                         chunk.drain_lanes, chunk.rr_start_depth):
         valid = int(chunk.ctl[ws.VALID])
         chunk._group(min(c for c in chunk.classes if c >= valid))
     torch.cuda.synchronize()
@@ -2181,7 +2196,7 @@ def main(argv=None) -> int:
                       + big.num_spheres * SPHERE_OPS + W2_OPS))
     print(f"drain {MAIN_W}x{MAIN_H} spf {SPP} depth 50 from depth "
           f"{read_ctl[ws.DEPTH]}: {read_ctl[ws.COUNT]} live paths in "
-          f"{read_ctl[ws.VALID]} columns (threshold {chunk.drain_limit}), "
+          f"{read_ctl[ws.VALID]} columns ({chunk.drain_lanes} lanes), "
           f"{drain_rays} rays over {drain_levels} levels; equal to "
           f"drain_plain through B2, W1 and W2 bit for bit {drain_same}; the "
           f"plain drain_plain's paths beyond rtol 1e-4 {plain_share:.3e}, "

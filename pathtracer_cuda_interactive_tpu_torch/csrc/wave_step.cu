@@ -49,9 +49,11 @@
 // to it, and wave_tally moves the counts on from one wave to the next.  So
 // no wave needs a host read, and groups of waves replay as CUDA graphs.  A
 // null `ctl` is the live-prefix loop: every column a ray, `depth` as given.
-// Once the live count fits in the lanes the card holds at once, the loop
-// replays the drain instead of the next group: the small waves of the tail
-// cannot fill the card, and each paid a sort, a gather and four launches.
+// Once the live count fits in a group's worth of rounds of the lanes the
+// card holds at once, or the next group would run past the roulette's start
+// (ops/wavefront.py::_drains), the loop replays the drain instead of the
+// next group: the drain's lanes walk a level a round, as a wave does,
+// without the group's sorts, gathers and class-wide launches.
 //
 // What bounds them on the card: bytes.  Each reads and writes a few rows of
 // 4 bytes per ray and does a few hundred operations at most (W3's "sig_mort"

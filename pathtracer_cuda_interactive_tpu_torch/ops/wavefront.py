@@ -433,6 +433,29 @@ GRAPH_KERNELS = (trace_bricks_cuda, wave_step.wave_record_cuda,
                  wave_step.wave_drain_cuda)
 
 
+def _drains(live: int, depth: int, lanes: int, rr_start_depth: int) -> bool:
+    """Whether a read of the counted schedule that finds ``live`` paths
+    before the wave at depth ``depth`` replays the drain rather than the
+    next group, on a card that holds ``lanes`` of the drain's threads at
+    once (0: no drain), under a roulette from past ``rr_start_depth``.
+
+    A group replays GROUP_WAVES waves over a class at least as wide as
+    ``live``: each a walk level of every path, a sort, a gather and a
+    class-wide launch of B2.  The drain carries the paths in rounds of its
+    resident lanes, refilled as paths end, each round a walk level as each
+    wave is.  It drains where
+
+    * ``live`` fits GROUP_WAVES rounds of the lanes: the drain does a
+      group's work without the class's launches, sorts and gathers, and
+      without the reads after it; or
+    * the group would run a wave past ``rr_start_depth``: from there each
+      bounce ends a path with probability at least a half, so the group's
+      later waves run at the class's width with at most a half, a quarter,
+      an eighth of its first wave's rays."""
+    return lanes > 0 and (live <= GROUP_WAVES * lanes
+                          or depth + GROUP_WAVES - 1 > rr_start_depth)
+
+
 class WaveEngine(NamedTuple):
     """What a chunk's waves run, and in which schedule (``wave_engine``)."""
     tracers: tuple      # the trace of the waves at depth 0 .. max_depth - 1
@@ -501,16 +524,16 @@ class _ChunkWaves:
       from wave to wave.  A group of GROUP_WAVES waves runs at the smallest
       capacity class (``_classes``) that holds the columns the last wave
       wrote, sorted as the uncounted schedule sorts, and the host reads the
-      control block once a group.  At a read whose live count is at most
-      ``drain_limit`` the drain (ops/wave_step.py::drain_counted) carries
-      every live path to its end in one launch.  On a card ``drain_limit``
-      is the drain's resident lanes (``drain_lanes``), and the primary
-      wave, the group of each class above it and the drain are CUDA graphs
-      captured at build (``_capture``); on the CPU the steps run eagerly
-      and the limit is 0 unless a caller sets it.  ``replays`` counts the
-      replays of the primary wave, of groups and of the drain (on the CPU,
-      the runs of their steps), ``drained`` the waves and rays the drain
-      took over."""
+      control block once a group.  At a read where ``_drains`` says so
+      the drain (ops/wave_step.py::drain_counted) carries every live path
+      to its end in one launch instead.  On a card ``drain_lanes`` is the
+      drain's resident lanes, and the primary wave, the group of each
+      class some read that does not drain can pick and the drain are CUDA
+      graphs captured at build (``_capture``); on the CPU the steps run
+      eagerly and ``drain_lanes`` is 0, so nothing drains, unless a caller
+      sets it.  ``replays`` counts the replays of the primary wave, of
+      groups and of the drain (on the CPU, the runs of their steps),
+      ``drained`` the waves and rays the drain took over."""
 
     def __init__(self, slots, num_samples: int, engine: WaveEngine, scene,
                  cam_data, width: int, height: int, seed: int,
@@ -558,7 +581,6 @@ class _ChunkWaves:
             self.key = torch.empty(C, dtype=torch.int32, device=dev)
             self.drain_lanes = (wave_step.drain_lanes(dev)
                                 if dev.type == "cuda" else 0)
-            self.drain_limit = self.drain_lanes
         if engine.graphed and C:
             self._capture(pool)
 
@@ -695,10 +717,19 @@ class _ChunkWaves:
 
     def _steps(self) -> dict:
         """The steps of each graph by name: the primary wave, the group of
-        each class above ``drain_limit`` and the drain."""
+        each class some read that does not drain can pick, and the drain.
+        A read picks the smallest class that holds the columns the last
+        wave wrote, at least its live paths: the first read (depth 1) all
+        C columns of the primary wave, a later one (depth 1 + GROUP_WAVES
+        on, where ``_drains`` drains at least as often) those of a wave.
+        So a class of c columns is picked only where c live paths would
+        not drain at the first depth that can pick it."""
+        lanes, rr = self.drain_lanes, self.rr_start_depth
         return {"primary": self._primary,
                 **{c: functools.partial(self._group, c)
-                   for c in self.classes if c > self.drain_limit},
+                   for i, c in enumerate(self.classes)
+                   if not _drains(c, 1 if i == 0 else 1 + GROUP_WAVES,
+                                  lanes, rr)},
                 "drain": self._drain}
 
     def _capture(self, pool) -> None:
@@ -762,7 +793,8 @@ class _ChunkWaves:
             live = ctl[wave_step.COUNT]
             if not live:
                 break
-            if live <= self.drain_limit:
+            if _drains(live, ctl[wave_step.DEPTH], self.drain_lanes,
+                       self.rr_start_depth):
                 before_drain = ctl
                 self._run("drain")
                 continue

@@ -9,11 +9,12 @@ CUDA events around each wave's trace (kernel B2) and its step (before the
 trace: W3's key, the stable sort and the gather; after it: W1 and W2),
 the median of ``--repeats`` frames at one sample index after a warm-up
 frame.  Then the drain's resident lanes (``wave_step.drain_lanes``) and,
-for the multiples 1 and 2 of them, what the counted schedule would
-leave to the drain: the waves from its first host read (before waves 1,
-5, 9, ...: one a group of ``GROUP_WAVES``) whose live count is at most the
-threshold, their rays, B2 and step times, and every wave at or under the
-threshold wherever it falls.
+for a drain at a live count of at most one round of them and for the
+counted schedule's rule (``wavefront._drains``), what the counted schedule
+would leave to the drain: the waves from its first host read (before
+waves 1, 5, 9, ...: one a group of ``GROUP_WAVES``) that drains, their
+rays, B2 and step times, and every wave that would drain at its own
+depth wherever it falls.
 
     python -m pathtracer_cuda_interactive_tpu_torch.render.wave_times \\
         [--repeats 3] [--out DIR]
@@ -38,6 +39,7 @@ from ..models.scenepack import pack_scene
 from ..models.subdivide import subdivide_scene
 from ..ops import wave_step, wavefront
 from ..ops.camera import Camera, camera_ray_data
+from ..ops.integrator import RR_START_DEPTH
 
 WIDTH, HEIGHT, LEVELS = 640, 480, 3
 FRAMES = {"spf2 frame": 2, "spf10 first chunk": 6}
@@ -84,13 +86,14 @@ def wave_times(bricks, cd, samples: int) -> list:
             for w in waves]
 
 
-def tail(rows: list, limit: int) -> dict:
-    """What the counted schedule would leave to a drain at ``limit``:
-    the waves from the first host read (before wave 1 + k GROUP_WAVES)
-    whose live count is at most ``limit``, and every wave at or under
-    it."""
+def tail(rows: list, rule: str, drains) -> dict:
+    """What the counted schedule would leave to the drain under ``rule``
+    (``drains(live, depth) -> bool``): the waves from the first host read
+    (before wave 1 + k GROUP_WAVES) that drains, and every wave that would
+    drain at its own depth."""
     reads = range(1, len(rows), wavefront.GROUP_WAVES)
-    first = next((w for w in reads if rows[w]["rays"] <= limit), len(rows))
+    first = next((w for w in reads if drains(rows[w]["rays"], w)),
+                 len(rows))
 
     def total(waves):
         return {"waves": len(waves),
@@ -98,10 +101,10 @@ def tail(rows: list, limit: int) -> dict:
                 "b2_ms": sum(rows[w]["b2_ms"] for w in waves),
                 "step_ms": sum(rows[w]["step_ms"] for w in waves)}
 
-    return {"limit": limit, "from_wave": first,
+    return {"rule": rule, "from_wave": first,
             "drained": total(range(first, len(rows))),
             "under": total([w for w, r in enumerate(rows)
-                            if r["rays"] <= limit])}
+                            if drains(r["rays"], w)])}
 
 
 def main(argv=None) -> int:
@@ -127,13 +130,17 @@ def main(argv=None) -> int:
         for w, row in enumerate(rows):
             print(f"{label} wave {w}: {row['rays']} rays, B2 "
                   f"{row['b2_ms']:.4f} ms, step {row['step_ms']:.4f} ms")
-        tails = [tail(rows, m * lanes) for m in (1, 2)]
+        tails = [tail(rows, f"at most {lanes} live",
+                      lambda live, depth: live <= lanes),
+                 tail(rows, "wavefront._drains",
+                      lambda live, depth: wavefront._drains(
+                          live, depth, lanes, RR_START_DEPTH))]
         for t in tails:
             d, u = t["drained"], t["under"]
-            print(f"{label} at {t['limit']} rays: drain from wave "
+            print(f"{label}, a drain {t['rule']}: from wave "
                   f"{t['from_wave']}: {d['waves']} waves, {d['rays']} rays, "
                   f"B2 {d['b2_ms']:.4f} ms, steps {d['step_ms']:.4f} ms; "
-                  f"all waves at or under it: {u['waves']} waves, "
+                  f"all waves it drains: {u['waves']} waves, "
                   f"{u['rays']} rays, B2 {u['b2_ms']:.4f} ms, steps "
                   f"{u['step_ms']:.4f} ms")
         print(f"{label}: {len(rows)} waves, "

@@ -1,12 +1,18 @@
 """The drain of the wave loop's counted schedule (ops/wavefront.py::
 _ChunkWaves, ops/wave_step.py::drain_plain and the kernel ``wave_drain``):
-at a host read whose live count is at most the chunk's ``drain_limit``,
-every live path of the carried table is carried to its end at once.
+at a host read whose live count fits GROUP_WAVES rounds of the drain's
+resident lanes, or whose group would run past the roulette's start
+(``wavefront._drains``), every live path of the carried table is carried
+to its end at once.
 
-On the CPU the counted schedule runs its plain steps and ``drain_plain``:
-with the drain forced at the first read and at a middle read, the image,
-waves and rays equal the uncounted schedule's bit for bit (the counted
-schedule that never drains, the CPU's default, is held to it in
+The rule on both sides of each of its limits, and the classes a chunk
+captures under it.  On the CPU the counted schedule runs its plain steps
+and ``drain_plain``: with the drain forced at the first read and at a
+middle read, and with lanes that drain at the second read where one round
+of them would not, the image, waves and rays equal the uncounted
+schedule's bit for bit and the drain took the rays of the waves it
+replaced (the counted schedule
+that never drains, the CPU's default, is held to it in
 tests/test_torch_wave_graphs.py);
 ``drain_plain``
 on a carried table equals the sorted waves run one by one through the
@@ -17,8 +23,8 @@ The cases marked ``cuda`` skip without a card and import no jax, so on the
 card this file runs with ``python -m pytest --noconftest -m cuda
 tests/test_torch_wave_drain.py``: the drain kernel against ``drain_plain``
 through the wave's own kernels (B2, W1, W2) bit for bit on the carried
-table of a 640x480 frame at the first read at or under the card's
-threshold, and the resident lanes the threshold is made of.
+table of a 640x480 frame at the first read the rule drains on the card,
+and the resident lanes the rule is made of.
 """
 
 import pytest
@@ -87,14 +93,77 @@ _refs = {}
 
 
 def _ref(blob, sort_mode):
-    """The uncounted schedule's 32x24, 2-sample frame and its stats."""
+    """The uncounted schedule's 32x24, 2-sample frame, its stats and the
+    rays of each of its waves."""
     if sort_mode not in _refs:
         bricks, cam = blob
-        stats = {}
-        img = _frame(bricks, _camera(cam, 32, 24), 32, 24, 2, sort_mode,
-                     stats)
-        _refs[sort_mode] = img, stats
+        stats, rays = {}, []
+
+        def trace_wave(scene, org, dirn, tnear):
+            rays.append(int(org.x.numel()))
+            return wavefront.trace_wave_slim(scene, org, dirn, tnear)
+
+        root = bricks.top_boxes[0, :6]
+        img = wavefront.render_waves(
+            bricks, _camera(cam, 32, 24), 32, 24, 0, 2, SEED, DEPTH, RR,
+            sort_mode, False, root[:3], root[3:], (trace_wave,) * DEPTH,
+            wave_step.STEPS.record, stats=stats)
+        _refs[sort_mode] = img, stats, rays
     return _refs[sort_mode]
+
+
+def _lanes(limit):
+    """The fewest lanes whose GROUP_WAVES rounds hold ``limit`` paths."""
+    return -(-limit // wavefront.GROUP_WAVES)
+
+
+K, CARD_LANES = wavefront.GROUP_WAVES, 118_272     # an H100's drain lanes
+
+
+# (live, depth, lanes, drains) with the roulette from past depth RR = 5.
+# At depth 1 a group stops short of the roulette: the live paths against
+# GROUP_WAVES rounds of the lanes decide, and what one round holds drains
+# too.  From depth RR - K + 2 = 3 on a group would run past it: a read
+# drains whatever its live count.  No lanes, no drain.
+@pytest.mark.parametrize("live,depth,lanes,drains", [
+    (K * CARD_LANES, 1, CARD_LANES, True),
+    (K * CARD_LANES + 1, 1, CARD_LANES, False),
+    (K * 128, 1, 128, True),
+    (K * 128 + 1, 1, 128, False),
+    (CARD_LANES, 1, CARD_LANES, True),
+    (1, 1, CARD_LANES, True),
+    (128, 1, 128, True),
+    (614_400, 1, CARD_LANES, False),
+    (614_400, RR - K + 1, CARD_LANES, False),
+    (614_400, RR - K + 2, CARD_LANES, True),
+    (414_155, 5, CARD_LANES, True),
+    (1_241_469, 5, CARD_LANES, True),
+    (1_843_200, 1, CARD_LANES, False),
+    (1, 1, 0, False),
+    (614_400, 5, 0, False),
+])
+def test_drain_rule(live, depth, lanes, drains):
+    assert wavefront._drains(live, depth, lanes, RR) is drains
+
+
+# (rr_start_depth, lanes, groups) of a 64x48, 2-sample chunk, classes 6144
+# and 4096: the first read (depth 1) picks 6144, later ones (depth 5 on)
+# either; with the roulette from past depth 5 a later read always drains
+@pytest.mark.parametrize("rr,lanes,groups", [
+    (RR, 0, [6144, 4096]),
+    (RR, 1, [6144]),
+    (RR, 1536, []),
+    (DEPTH, 900, [6144, 4096]),
+    (DEPTH, 1100, [6144]),
+])
+def test_drain_rule_picks_the_captured_classes(blob, rr, lanes, groups):
+    """A chunk's groups: the classes some read that does not drain can
+    pick."""
+    bricks, cam = blob
+    _, chunk = _chunk(bricks, _camera(cam, 64, 48), 64, 48, 2, "sig_mort")
+    assert chunk.classes == [6144, 4096]
+    chunk.rr_start_depth, chunk.drain_lanes = rr, lanes
+    assert list(chunk._steps()) == ["primary", *groups, "drain"]
 
 
 # the drain's limit as a share of the chunk's capacity: all of it (the
@@ -104,10 +173,10 @@ def _ref(blob, sort_mode):
 def test_drain_matches_the_live_prefix_loop(blob, sort_mode, when, share):
     bricks, cam = blob
     cd = _camera(cam, 32, 24)
-    ref, ref_stats = _ref(blob, sort_mode)
+    ref, ref_stats, _ = _ref(blob, sort_mode)
     cache, chunk = _chunk(bricks, cd, 32, 24, 2, sort_mode)
-    assert chunk.drain_limit == 0        # no drain on the CPU by default
-    chunk.drain_limit = int(share * chunk.capacity)
+    assert chunk.drain_lanes == 0        # no drain on the CPU by default
+    chunk.drain_lanes = _lanes(int(share * chunk.capacity))
     stats = {}
     got = _frame(bricks, cd, 32, 24, 2, sort_mode, stats, cache)
     assert torch.equal(got, ref)
@@ -120,6 +189,30 @@ def test_drain_matches_the_live_prefix_loop(blob, sort_mode, when, share):
         assert 1 <= runs["group"] < ref_stats["waves"] // wavefront.GROUP_WAVES
     assert int(chunk.ctl[wave_step.COUNT]) == 0
     assert chunk.ctl.tolist()[wave_step.CURSOR:] == [0, 0]
+
+
+# lanes whose one round holds fewer paths than the second read (before
+# wave 1 + K) finds: 300, whose K rounds hold them; 1, whose K rounds do
+# not, where the second read drains as its group would pass the roulette
+@pytest.mark.parametrize("lanes", [300, 1])
+def test_drain_from_the_second_read(blob, lanes):
+    """The drain takes the frame from the second read (one round of the
+    lanes would wait for the third), the frame is the uncounted
+    schedule's bit for bit, and the drain took the rays of the waves it
+    replaced."""
+    bricks, cam = blob
+    cd = _camera(cam, 32, 24)
+    ref, ref_stats, rays = _ref(blob, "sig_mort")
+    assert rays[1] > K * lanes and rays[1 + K] > lanes
+    assert (rays[1 + K] <= K * lanes) is (lanes == 300)
+    cache, chunk = _chunk(bricks, cd, 32, 24, 2, "sig_mort")
+    chunk.drain_lanes = lanes
+    stats = {}
+    got = _frame(bricks, cd, 32, 24, 2, "sig_mort", stats, cache)
+    assert torch.equal(got, ref) and stats == ref_stats
+    assert chunk.replays == {"primary": 1, "group": 1, "drain": 1}
+    assert chunk.drained == {"waves": len(rays) - 1 - K,
+                             "rays": sum(rays[1 + K:])}
 
 
 def _carried(bricks, cam, width, height, spp, sort_mode="sig_mort"):
@@ -196,7 +289,7 @@ def test_drain_counts_its_rays(blob, monkeypatch):
     monkeypatch.setattr(trace, "_recording", lambda: True)
     for share in (1.0, 0.0):
         cache, chunk = _chunk(bricks, cd, 32, 24, 1, "sig_mort")
-        chunk.drain_limit = int(share * chunk.capacity)
+        chunk.drain_lanes = _lanes(int(share * chunk.capacity))
         before, stats = trace.counts(), {}
         _frame(bricks, cd, 32, 24, 1, "sig_mort", stats, cache)
         added = {k: v - before.get(k, 0) for k, v in trace.counts().items()}
@@ -213,7 +306,7 @@ def _needs_card():
 @pytest.mark.cuda
 def test_cuda_drain_lanes():
     """The card's resident lanes of the drain: a whole number of 128-thread
-    blocks on every SM, and every chunk's threshold made of them."""
+    blocks on every SM, the lanes the rule of every chunk reads."""
     _needs_card()
     lanes = wave_step.drain_lanes("cuda")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -224,16 +317,18 @@ def test_cuda_drain_lanes():
 @pytest.mark.cuda
 def test_cuda_drain_matches_drain_plain_through_the_wave_kernels():
     """The drain kernel on the carried table of a 640x480, 2-sample frame
-    at the first read whose live count is at most the card's threshold,
-    against ``drain_plain`` through B2, W1 and W2 on the same table: the
-    radiance and the control block bit for bit."""
+    at the first read the rule drains on the card, against ``drain_plain``
+    through B2, W1 and W2 on the same table: the radiance and the control
+    block bit for bit."""
     _needs_card()
     bricks, cam = _load("cuda")
     cd = _camera(cam, 640, 480, "cuda")
     cache, chunk = _chunk(bricks, cd, 640, 480, 2, "sig_mort")
     chunk.cam.copy_(cd)
     chunk._primary()
-    while int(chunk.ctl[wave_step.COUNT]) > chunk.drain_limit:
+    while not wavefront._drains(int(chunk.ctl[wave_step.COUNT]),
+                                int(chunk.ctl[wave_step.DEPTH]),
+                                chunk.drain_lanes, RR):
         valid = int(chunk.ctl[wave_step.VALID])
         chunk._group(min(c for c in chunk.classes if c >= valid))
     live = int(chunk.ctl[wave_step.COUNT])

@@ -188,9 +188,12 @@ def _launches():
 
 
 def _groups(chunk):
-    """The classes a chunk captured a group for: those above its drain
-    limit."""
-    return [c for c in chunk.classes if c > chunk.drain_limit]
+    """The classes a chunk captured a group for: its full width, picked by
+    the first read, unless GROUP_WAVES rounds of its drain's lanes hold
+    it.  At depth 50 with the roulette from past depth 5 every later read
+    drains: its group would run past the roulette's start."""
+    return [c for c in chunk.classes[:1]
+            if c > wavefront.GROUP_WAVES * chunk.drain_lanes]
 
 
 @pytest.mark.cuda
