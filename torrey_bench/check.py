@@ -56,9 +56,12 @@ def tiles_for_budget(rays: float, samples: int, rays_per_sample: float,
 def pick_tiles(cell, size: dict, samples: int, seed: int) -> np.ndarray:
     """The pixels a run compares: as many tiles as the configuration's ray
     budget (``check.rays``) allows at ``samples`` samples a pixel, drawn
-    from ``seed``."""
+    from ``seed``.  The reference's shadow rays, where it traces any, count
+    against the budget beside its path rays."""
+    fixed = cell.config["fixed_work"]
     tiles = tiles_for_budget(cell.config["check"]["rays"], samples,
-                             cell.config["fixed_work"]["rays_per_sample"],
+                             fixed["rays_per_sample"]
+                             + fixed.get("shadow_rays_per_sample", 0),
                              size["width"], size["height"])
     return tile_pixels(seed, size["width"], size["height"], tiles)
 
@@ -107,5 +110,5 @@ def reference_sums(cell, size: dict, pix: np.ndarray, first: int,
     return reference.pixel_sample_sums(
         scene.to(device), cam_data, pix, size["width"], size["height"],
         first, count, seed, size["max_depth"], size["rr_start_depth"],
-        nee=bool(cell.traffic["render_config"].get("enable_nee", False)),
+        nee=bool(cell.render_config.get("enable_nee", False)),
         store_dtype=store_dtype)

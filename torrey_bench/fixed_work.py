@@ -7,9 +7,12 @@ prints the ``fixed_work`` object that the configuration's file keeps for
 triangle and sphere tests a ray's closest hit makes in the reference's own
 search (brute force up to 512 primitives, its BVH walk above), counted over
 ``N`` pixels drawn from seed 1984 at samples 0 and 1, and the bytes of the
-reference's scene tables that search and shading read.  These are the
-configuration's, not the program's: whatever implements a frame, it needs
-at least this work.
+reference's scene tables that search and shading read.  Where the
+configuration samples its point lights (``render_config.enable_nee``), also
+the shadow rays a camera sample casts, one a hit a light, and the box,
+triangle and sphere tests a shadow ray's any-hit search makes.  These are
+the configuration's, not the program's: whatever implements a frame, it
+needs at least this work.
 """
 
 from __future__ import annotations
@@ -35,26 +38,40 @@ def count(config: dict, pixels: int, device: str = "cpu") -> dict:
     w, h = config["width"], config["height"]
     pix = np.random.default_rng(SEED).choice(w * h, size=pixels,
                                              replace=False)
+    nee = bool(config.get("render_config", {}).get("enable_nee", False))
     counts = {}
     cam_data = torch.as_tensor(ref.camera_ray_data(cam, w, h), device=device)
     ref.pixel_sample_sums(scene.to(device), cam_data, pix, w, h, 0, SAMPLES,
                           SEED, config["max_depth"], config["rr_start_depth"],
-                          counts=counts)
+                          nee=nee, counts=counts)
     rays = counts["rays"]
     tables = {name: value for name, value in vars(scene).items()
               if isinstance(value, torch.Tensor)}
     if scene.num_prims <= BRUTE_FORCE_MAX_PRIMS:
         tables.pop("bvh_nodes")         # brute force reads no tree
-    return {
+    out = {
         "rays_per_sample": rays / (pixels * SAMPLES),
         "box_tests_per_ray": counts.get("box", 0) / rays,
         "tri_tests_per_ray": counts.get("tri", 0) / rays,
         "sphere_tests_per_ray": counts.get("sphere", 0) / rays,
-        "scene_bytes": int(sum(t.numel() * t.element_size()
-                               for t in tables.values())),
-        "counted_over": f"{pixels} pixels drawn from seed {SEED}, samples "
-                        f"0-{SAMPLES - 1}, {rays} rays",
     }
+    counted = f"{rays} rays"
+    if nee:
+        shadow = counts.get("shadow_rays", 0)
+        per = max(shadow, 1)
+        out.update({
+            "shadow_rays_per_sample": shadow / (pixels * SAMPLES),
+            "shadow_box_tests_per_ray": counts.get("shadow_box", 0) / per,
+            "shadow_tri_tests_per_ray": counts.get("shadow_tri", 0) / per,
+            "shadow_sphere_tests_per_ray":
+                counts.get("shadow_sphere", 0) / per,
+        })
+        counted += f", {shadow} shadow rays"
+    out["scene_bytes"] = int(sum(t.numel() * t.element_size()
+                                 for t in tables.values()))
+    out["counted_over"] = (f"{pixels} pixels drawn from seed {SEED}, "
+                           f"samples 0-{SAMPLES - 1}, {counted}")
+    return out
 
 
 def main(argv=None) -> int:

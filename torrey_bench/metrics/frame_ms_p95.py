@@ -1,5 +1,6 @@
 """The 95th percentile of the host-clock time of every synced frame in the
-window (``statistics.quantiles``, inclusive), over all of its frames."""
+window, from the traffic's camera move to the sync
+(``statistics.quantiles``, inclusive), over all of its frames."""
 
 import statistics
 

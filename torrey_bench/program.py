@@ -56,7 +56,7 @@ def render_config(cell, seed: int, size: dict):
         RenderConfig)
     return RenderConfig(max_depth=size["max_depth"],
                         rr_start_depth=size["rr_start_depth"], seed=seed,
-                        **cell.traffic["render_config"])
+                        **cell.render_config)
 
 
 def _sync(device: torch.device) -> None:
@@ -110,10 +110,12 @@ def warm_up(s: Session, frames: int) -> None:
         s.renderer.step(sync=True)
 
 
-def _traced_frame(r, record_function) -> float:
-    """One frame as ``step(sync=False)`` and a sync; returns the host ms
-    until ``step`` returned."""
+def _traced_frame(r, move, record_function) -> float:
+    """One frame as the camera's ``move()``, ``step(sync=False)`` and a
+    sync; returns the host ms of ``step`` until it returned."""
     with record_function("bench.frame"):
+        with record_function("bench.move"):
+            move()
         t0 = time.perf_counter()
         with record_function("bench.step"):
             r.step(sync=False)
@@ -126,7 +128,9 @@ def _traced_frame(r, record_function) -> float:
 def run_window(s: Session, cell, seed: int, seconds: float,
                traced: bool = False) -> dict:
     """Synced frames back to back for ``seconds``: a closed loop, as the
-    viewer's and the reference's render loops run.  Returns the record the
+    viewer's and the reference's render loops run.  A frame is the
+    traffic's camera move (``before_frame``, as the viewer applies a drag
+    before it renders) and the synced step.  Returns the record the
     metrics read: every frame's host ms, the window's seconds, and with
     ``traced`` the host ms of every ``step`` call and the trace's events.
 
@@ -153,16 +157,18 @@ def run_window(s: Session, cell, seed: int, seconds: float,
     deadline = t_start + seconds
     frame = 0
     while True:
-        cell.motion.before_frame(r, frame, motion_rng)
         t0 = time.perf_counter()
         if not traced:
+            cell.motion.before_frame(r, frame, motion_rng)
             r.step(sync=True)
         else:
             if prof_t0 is None and t0 - t_start >= 0.5 * seconds \
                     and events is None:
                 prof.start()
                 prof_t0 = t0
-            host = _traced_frame(r, record_function)
+            host = _traced_frame(
+                r, lambda: cell.motion.before_frame(r, frame, motion_rng),
+                record_function)
             if prof_t0 is None:
                 step_ms.append(host)
             else:

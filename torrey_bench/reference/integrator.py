@@ -66,25 +66,47 @@ def intersect_scene(scene: DeviceScene, org: Vec3, dirn: Vec3, tnear,
     return trace_rays(scene.bvh_nodes, org, dirn, tnear)
 
 
-def occluded(scene: DeviceScene, org: Vec3, dirn: Vec3, tnear, tfar):
+def occluded(scene: DeviceScene, org: Vec3, dirn: Vec3, tnear, tfar,
+             counts=None):
     """Any hit on the segment (tnear, tfar): the NEE shadow test.  Brute
-    force for small scenes, the BVH walk above ``BRUTE_FORCE_MAX_PRIMS``."""
+    force for small scenes, the BVH walk above ``BRUTE_FORCE_MAX_PRIMS``.
+    ``counts``, a dict, gets the shadow rays traced added under
+    "shadow_rays", and the box, triangle and sphere tests of their search
+    under "shadow_box", "shadow_tri" and "shadow_sphere"."""
+    if counts is not None:
+        _add(counts, shadow_rays=int(org.x.numel()))
     if scene.num_prims <= BRUTE_FORCE_MAX_PRIMS:
+        if counts is not None:      # every primitive, no early exit
+            n = int(org.x.numel())
+            _add(counts, shadow_tri=n * scene.num_triangles,
+                 shadow_sphere=n * scene.num_spheres)
         return occluded_brute(scene, org, dirn, tnear, tfar)
-    return trace_occluded(scene.bvh_nodes, org, dirn, tnear, tfar)
+    tests = None if counts is None else {}
+    occ = trace_occluded(scene.bvh_nodes, org, dirn, tnear, tfar, tests)
+    if counts is not None:
+        _add(counts, **{f"shadow_{k}": v for k, v in tests.items()})
+    return occ
+
+
+def _add(counts: dict, **more) -> None:
+    for key, value in more.items():
+        counts[key] = counts.get(key, 0) + value
 
 
 def _direct_point_lights(scene: DeviceScene, isect, n: Vec3, wi: Vec3,
-                         mat, T: Vec3, active) -> Vec3:
+                         mat, T: Vec3, active, counts=None) -> Vec3:
     """Next-event estimation for point lights (the reference parses point
     lights but never samples them, SURVEY.md §3.5).  Deterministic (no RNG
     draws), so enabling it leaves every sample stream bit-identical.
 
-    The shadow test is ``occluded``.  Returns the direct-lighting radiance
-    to add."""
+    The shadow test is ``occluded``, over the ``active`` rays alone (those
+    that hit: no other ray adds direct light), as one batch ``[n]``; each
+    ray's answer is its own, whatever else the batch holds.  ``counts``:
+    as in ``occluded``.  Returns the direct-lighting radiance to add."""
     num = int(scene.light_pos.shape[0])
     shape = wi.x.shape
     out = Vec3.zeros(shape, device=wi.x.device)
+    hits = active.nonzero().squeeze(1)
     for l in range(num):
         lp = Vec3(scene.light_pos[l, 0], scene.light_pos[l, 1],
                   scene.light_pos[l, 2])
@@ -93,8 +115,12 @@ def _direct_point_lights(scene: DeviceScene, isect, n: Vec3, wi: Vec3,
         dist = torch.sqrt(dist2)
         wo = d * (1.0 / torch.clamp_min(dist, 1e-20))
         ev = brdf.eval_brdf(mat, n, wi, wo)   # value includes cos/pi terms
-        occ = occluded(scene, isect.position, wo, SECONDARY_TNEAR,
-                       dist * (1.0 - 1e-3))
+        occ = torch.zeros(shape, dtype=torch.bool, device=wi.x.device)
+        if hits.numel():
+            occ.index_copy_(0, hits, occluded(
+                scene, _take(isect.position, hits), _take(wo, hits),
+                SECONDARY_TNEAR, (dist * (1.0 - 1e-3)).index_select(0, hits),
+                counts))
         inten = Vec3(scene.light_intensity[l, 0],
                      scene.light_intensity[l, 1],
                      scene.light_intensity[l, 2])
@@ -114,14 +140,16 @@ def _bounce(scene: DeviceScene, org, dirn, T, L, active, tnear, state,
     rr_on = torch.full_like(active, rr_depth is not None
                             and rr_depth > rr_start_depth)
     return _shade(scene, prim, org, dirn, T, L, active, tnear, state, rr_on,
-                  nee)
+                  nee, counts)
 
 
 def _shade(scene: DeviceScene, prim, org, dirn, T, L, active, tnear, state,
-           rr_on, nee: bool = False):
-    """The bounce after the closest hit ``prim``: emission, the BSDF
-    sample, Russian roulette where ``rr_on`` (a per-ray mask; the draw
-    always happens).  Returns (org, dirn, T, L, active, tnear, state)."""
+           rr_on, nee: bool = False, counts=None):
+    """The bounce after the closest hit ``prim``: emission, point lights
+    where ``nee`` (their shadow tests counted into ``counts``, as in
+    ``occluded``), the BSDF sample, Russian roulette where ``rr_on`` (a
+    per-ray mask; the draw always happens).  Returns (org, dirn, T, L,
+    active, tnear, state)."""
     zeros = Vec3.zeros(prim.shape, device=prim.device)
 
     miss = prim < 0
@@ -141,7 +169,8 @@ def _shade(scene: DeviceScene, prim, org, dirn, T, L, active, tnear, state,
     mat = brdf.lookup_materials(scene, isect.material_id)
 
     if nee and int(scene.light_pos.shape[0]) > 0:
-        L = L + _direct_point_lights(scene, isect, n, wi, mat, T, active)
+        L = L + _direct_point_lights(scene, isect, n, wi, mat, T, active,
+                                     counts)
 
     samp = brdf.sample_brdf(mat, n, wi, state)
     state = samp.state
@@ -286,7 +315,7 @@ def _paths_walk(scene: DeviceScene, org: Vec3, dirn: Vec3, state, max_depth,
             _take(T, f), _take(L, f),
             torch.ones(f.shape, dtype=torch.bool, device=dev),
             tn.index_select(0, f), state.index_select(0, f),
-            depth.index_select(0, f) > rr_start_depth, nee)
+            depth.index_select(0, f) > rr_start_depth, nee, counts)
         if store_dtype is not None:
             o2, d2, T2, L2 = (_round(v, store_dtype)
                               for v in (o2, d2, T2, L2))
@@ -336,7 +365,8 @@ def pixel_sample_sums(scene: DeviceScene, cam_data: torch.Tensor,
     of the flat pixels ``pix`` ([P] ints): (radiance sum [P, 3], sum of its
     squares [P, 3]), float64 numpy arrays.  ``batch`` bounds the paths
     traced at once.  ``counts``, a dict, gets the rays traced ("rays") and
-    the box, triangle and sphere tests of their closest hits added."""
+    the box, triangle and sphere tests of their closest hits added, and
+    with ``nee`` the shadow rays and their tests (``occluded``)."""
     dev = scene.device
     pix_t = torch.as_tensor(np.asarray(pix), dtype=torch.int64, device=dev)
     P = int(pix_t.numel())

@@ -73,9 +73,11 @@ def walk_step(nodes: torch.Tensor, ints: torch.Tensor, cur, org: Vec3,
 
 @torch.no_grad()
 def _traverse(bvh_nodes: torch.Tensor, org: Vec3, dirn: Vec3, tnear,
-              t_limit):
+              t_limit, counts=None):
     """(prim [shape] i32, -1 = miss; t [shape] f32) of the closest hit
-    closer than ``t_limit`` (None: no limit)."""
+    closer than ``t_limit`` (None: no limit).  ``counts``, a dict, gets
+    the box, triangle and sphere tests the walks made added under "box",
+    "tri" and "sphere": one a node a walk visits, until its walk ends."""
     shape = org.x.shape
     dev = org.x.device
     N = int(bvh_nodes.shape[0])
@@ -95,10 +97,16 @@ def _traverse(bvh_nodes: torch.Tensor, org: Vec3, dirn: Vec3, tnear,
 
     ids = torch.arange(n, device=dev)
     cur = torch.zeros(n, dtype=torch.int64, device=dev)
+    tests = torch.zeros(3, dtype=torch.int64, device=dev)
+    kinds = torch.tensor([KIND_INTERNAL, KIND_TRI, KIND_SPHERE],
+                         dtype=torch.int32, device=dev)
     step = 0
     while ids.numel():
-        cur, t_max, hit, _, _ = walk_step(nodes, ints, cur, o, d, inv, tn,
-                                          t_max, hit)
+        cur, t_max, hit, kind, walking = walk_step(nodes, ints, cur, o, d,
+                                                   inv, tn, t_max, hit)
+        if counts is not None:
+            tests += ((kind[None] == kinds[:, None])
+                      & walking[None]).sum(dim=1)
         step += 1
         if step % COMPACT_STEPS:
             continue
@@ -113,6 +121,9 @@ def _traverse(bvh_nodes: torch.Tensor, org: Vec3, dirn: Vec3, tnear,
                                     for v in (ids, cur, t_max, hit, tn))
         o, d, inv = (Vec3(*(c.index_select(0, keep) for c in v))
                      for v in (o, d, inv))
+    if counts is not None:
+        for key, value in zip(("box", "tri", "sphere"), tests.tolist()):
+            counts[key] = counts.get(key, 0) + value
     return out_hit.reshape(shape), out_t.reshape(shape)
 
 
@@ -123,8 +134,8 @@ def trace_rays(bvh_nodes: torch.Tensor, org: Vec3, dirn: Vec3, tnear):
 
 
 def trace_occluded(bvh_nodes: torch.Tensor, org: Vec3, dirn: Vec3, tnear,
-                   t_limit):
+                   t_limit, counts=None):
     """Any-hit query for shadow rays: True where a primitive lies on the
-    segment (tnear, t_limit)."""
-    hit, _ = _traverse(bvh_nodes, org, dirn, tnear, t_limit)
+    segment (tnear, t_limit).  ``counts``: as in ``_traverse``."""
+    hit, _ = _traverse(bvh_nodes, org, dirn, tnear, t_limit, counts)
     return hit >= 0

@@ -5,9 +5,11 @@ configuration's file holds what the benchmark's own reference counted once
 (``python3 -m torrey_bench.fixed_work``): rays a camera sample, and box,
 triangle and sphere tests a ray in the reference's own closest-hit search
 (brute force up to 512 primitives, its BVH walk above), and the bytes of
-its scene tables.  Whatever implements the frame, its kernels need at least
-the larger of these operations over the FP32 peak and these bytes over the
-memory peak.
+its scene tables; where the configuration samples its point lights, the
+shadow rays a camera sample and the tests a shadow ray in the reference's
+any-hit search.  An absent count is 0.  Whatever implements the frame, its
+kernels need at least the larger of these operations over the FP32 peak and
+these bytes over the memory peak.
 """
 
 from __future__ import annotations
@@ -29,16 +31,26 @@ SPHERE_OPS = 24
 RAY_BYTES = 24
 HIT_BYTES = 8
 PIXEL_BYTES = 12
+# a shadow ray's origin and direction read once, its occlusion flag (one
+# byte) written once
+SHADOW_RAY_BYTES = RAY_BYTES + 1
 
 
 def frame_work(fixed: dict, width: int, height: int, spf: int) -> tuple:
-    """(operations, bytes) of one frame of ``spf`` samples a pixel."""
+    """(operations, bytes) of one frame of ``spf`` samples a pixel: the
+    closest-hit rays' tests, and the shadow rays' where ``fixed`` counts
+    any (their tests at the same operations a test)."""
     rays = width * height * spf * fixed["rays_per_sample"]
-    ops = rays * (fixed["box_tests_per_ray"] * BOX_OPS
-                  + fixed["tri_tests_per_ray"] * TRI_OPS
-                  + fixed["sphere_tests_per_ray"] * SPHERE_OPS)
+    shadow = width * height * spf * fixed.get("shadow_rays_per_sample", 0)
+    ops = (rays * (fixed["box_tests_per_ray"] * BOX_OPS
+                   + fixed["tri_tests_per_ray"] * TRI_OPS
+                   + fixed["sphere_tests_per_ray"] * SPHERE_OPS)
+           + shadow * (fixed.get("shadow_box_tests_per_ray", 0) * BOX_OPS
+                       + fixed.get("shadow_tri_tests_per_ray", 0) * TRI_OPS
+                       + fixed.get("shadow_sphere_tests_per_ray", 0)
+                       * SPHERE_OPS))
     nbytes = (fixed["scene_bytes"] + rays * (RAY_BYTES + HIT_BYTES)
-              + width * height * PIXEL_BYTES)
+              + shadow * SHADOW_RAY_BYTES + width * height * PIXEL_BYTES)
     return ops, nbytes
 
 

@@ -6,10 +6,11 @@
 from the root of a checkout.  Set-up (imports, the kernel libraries, the
 scene build and upload, the warm-up frames) is timed from the start of this
 module; then ``ProgressiveRenderer.step(sync=True)`` runs back to back for
-``--seconds`` (with ``--trace 1`` as ``step(sync=False)`` and a sync, a few
-frames of it under ``torch.profiler``); then what the window added to the
-accumulation is compared with the plain reference (check.py).  The last
-line on stdout is one JSON object; the numbers compared, each with its
+``--seconds``, each frame after the traffic's camera move (with ``--trace
+1`` as ``step(sync=False)`` and a sync, a few frames of it under
+``torch.profiler``); then what the window added to the accumulation since
+the camera last moved is compared with the plain reference (check.py).  The
+last line on stdout is one JSON object; the numbers compared, each with its
 limit, are the last lines on stderr and the result's last key.  With no
 CUDA card, or fewer than the cell asks for, it exits 2 and prints no
 result; with JAX or the JAX package loaded after the window, 3.

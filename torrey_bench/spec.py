@@ -5,10 +5,13 @@ metric sits in a file of its own, found by the name ``BENCHMARK.json``
 gives it, so a later cell, mix or metric is a new file and an edit of
 none:
 
-* ``configs/<config>.json``: the scene, its sizes and the yardstick's data
-  (fixed work, the check's budget and limits);
-* ``traffic/<traffic>.json``: the ``RenderConfig`` overrides, the warm-up
-  frames and the camera motion's name;
+* ``configs/<config>.json``: the scene, its sizes, the yardstick's data
+  (fixed work, the check's budget and limits) and, under
+  ``render_config``, the ``RenderConfig`` settings the deployment fixes
+  (such as ``enable_nee``: whether its point lights are sampled);
+* ``traffic/<traffic>.json``: the ``RenderConfig`` settings the user's
+  traffic sets (``render_config``), the warm-up frames and the camera
+  motion's name;
 * ``motions/<motion>.py``: a ``before_frame(renderer, frame, rng)``
   function that moves the camera (or not) before each timed frame;
 * ``metrics/<metric>.py``: a ``read(run)`` function that returns the
@@ -33,6 +36,7 @@ class Cell:
     chips: int
     config: dict
     traffic: dict
+    render_config: dict     # the configuration's and the traffic's, merged
     end_to_end: list        # BENCHMARK.json entries reported with --trace 0
     per_layer: list         # ... with --trace 1, those listing this cell
     motion: ModuleType
@@ -70,6 +74,20 @@ def check_scene_files(config: dict, bench_dir: Path = BENCH_DIR) -> None:
                                f"records {digest}")
 
 
+def merge_render_config(config: dict, traffic: dict, config_file: str,
+                        traffic_file: str) -> dict:
+    """The ``RenderConfig`` settings of a cell: the configuration's
+    ``render_config`` and the traffic's together.  A key that both set
+    raises, naming both files: neither overrides the other."""
+    ours = config.get("render_config", {})
+    theirs = traffic.get("render_config", {})
+    both = sorted(set(ours) & set(theirs))
+    if both:
+        raise ValueError(f"render_config {both} set in both {config_file} "
+                         f"and {traffic_file}")
+    return {**ours, **theirs}
+
+
 def load_cell(name: str, root: Path = ROOT,
               bench_dir: Path = BENCH_DIR) -> Cell:
     bench = json.loads((root / "BENCHMARK.json").read_text())
@@ -78,13 +96,15 @@ def load_cell(name: str, root: Path = ROOT,
         raise SystemExit(f"unknown workload {name!r}; BENCHMARK.json has "
                          f"{sorted(cells)}")
     w = cells[name]
-    config = json.loads(
-        (bench_dir / "configs" / f"{w['config']}.json").read_text())
-    traffic = json.loads(
-        (bench_dir / "traffic" / f"{w['traffic']}.json").read_text())
+    config_file = f"configs/{w['config']}.json"
+    traffic_file = f"traffic/{w['traffic']}.json"
+    config = json.loads((bench_dir / config_file).read_text())
+    traffic = json.loads((bench_dir / traffic_file).read_text())
     e2e = {m["name"]: m for m in bench["end_to_end"]}
     return Cell(
         name=name, chips=int(w["chips"]), config=config, traffic=traffic,
+        render_config=merge_render_config(config, traffic, config_file,
+                                          traffic_file),
         end_to_end=[m for m in bench["end_to_end"]
                     if "workloads" not in m or name in m["workloads"]],
         per_layer=[m for m in bench["per_layer"]

@@ -113,5 +113,14 @@ def test_traced_cpu_run_reads_the_port(cells, name):
     assert expected <= set(got)
     assert got["frame_host_ms"] > 0 and got["setup_span_s"] > 0
     if wavefront:
-        assert got["host_reads_per_frame"] > 2
+        # the counted schedule, the renderer keeping its chunks: the frame
+        # is one chunk of 16 x 12 x 2 columns; the host reads the control
+        # block after the primary wave and after each group of GROUP_WAVES
+        # waves until the depth cap ends every path (live paths in a
+        # closed box); nothing drains on the CPU
+        from pathtracer_cuda_interactive_tpu_torch.ops.wavefront import (
+            GROUP_WAVES, MAX_RAYS_PER_WAVE)
+        assert 16 * 12 * 2 <= MAX_RAYS_PER_WAVE
+        groups = -(-(size["max_depth"] - 1) // GROUP_WAVES)
+        assert got["host_reads_per_frame"] == 1 + groups
         assert 0 < got["rays_per_wave"] <= 16 * 12 * 2

@@ -3,12 +3,12 @@
 ``events_from_profiler`` turns ``torch.profiler``'s events into a flat list
 of ``Event``: the device's kernels and copies, and the host ranges that the
 port (``wavefront.sort`` / ``.trace`` / ``.shade`` / ``.count`` in
-ops/wavefront.py) and the benchmark (``bench.frame``, ``bench.step``,
-``bench.sync``) open with ``record_function``.  ``digest`` reduces such a
-list to the traced window, the device's busy time in it (the union of its
-kernels and copies), the kernels by name, the host ranges by name and the
-device's idle time labelled by the innermost host range open at the middle
-of each gap: what the host was doing while the card waited.
+ops/wavefront.py) and the benchmark (``bench.frame``, ``bench.move``,
+``bench.step``, ``bench.sync``) open with ``record_function``.  ``digest``
+reduces such a list to the traced window, the device's busy time in it (the
+union of its kernels and copies), the kernels by name, the host ranges by
+name and the device's idle time labelled by the innermost host range open
+at the middle of each gap: what the host was doing while the card waited.
 """
 
 from __future__ import annotations
